@@ -1,0 +1,23 @@
+"""Architecture registry: the dense configs the port serves so far."""
+from importlib import import_module
+
+_MODULES = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "chatglm3-6b": "chatglm3_6b",
+    "llama2-7b": "llama2_7b",
+}
+
+ALL_ARCHS = tuple(_MODULES)
+
+
+def _mod(name: str):
+    key = name.replace("_", "-")
+    if key not in _MODULES:
+        raise KeyError(f"arch {name!r} is not ported to repro_torch yet; "
+                       f"ported: {ALL_ARCHS}")
+    return import_module(f".{_MODULES[key]}", __package__)
+
+
+def get_config(name: str, reduced: bool = False):
+    m = _mod(name)
+    return m.reduced() if reduced else m.config()

@@ -1,0 +1,81 @@
+"""Dispatch of the path's ops to their kernels.
+
+The kernel follows the tensor's device: a CUDA tensor goes to the
+hand-written Hopper kernel, a CPU tensor to the plain PyTorch version.
+The ``force_plain()`` context sends every op called inside it to the plain
+version on any device; it exists for the parity tests and for
+``chip_smoke.py``'s comparisons, and nothing on the serving path enters it.
+No environment variable is read.
+
+``dense_linear`` has no hand kernel, as ``repro``'s has no Pallas one: it is
+one ``torch.matmul`` on f32-upcast operands plus the epilogue, the way XLA's
+f32-accumulating dot is in the JAX package.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import torch
+
+from . import int4_matmul as _int4
+from . import paged_attention as _paged
+from . import prefill_attention as _prefill
+from . import tt_linear as _tt
+from .epilogue import apply_epilogue
+
+_plain: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_force_plain", default=False)
+
+
+@contextlib.contextmanager
+def force_plain():
+    """Run every op called inside on its plain version."""
+    token = _plain.set(True)
+    try:
+        yield
+    finally:
+        _plain.reset(token)
+
+
+def dense_linear(x, w, *, scale=None, bias=None, residual=None,
+                 activation: str | None = None):
+    """y = act(x W [* scale] [+ b]) [+ residual];  (…, N) @ (N, M)."""
+    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    y = apply_epilogue(y, scale=scale, bias=bias, residual=residual,
+                       activation=activation)
+    return y.to(x.dtype)
+
+
+def tt_linear(x, cores, spec, *, scale=None, bias=None, residual=None,
+              activation: str | None = None):
+    """(…, N) -> (…, M) through the staged TT contraction + fused epilogue."""
+    kw = dict(scale=scale, bias=bias, residual=residual, activation=activation)
+    if _plain.get():
+        return _tt.tt_linear_ref(x, cores, spec, **kw)
+    return _tt.tt_linear(x, cores, spec, **kw)
+
+
+def int4_matmul(x, qweight, scales, *, group: int = 128, scale=None, bias=None,
+                residual=None, activation: str | None = None):
+    """(…, K) -> (…, M) through the w4a16 kernel + fused epilogue."""
+    kw = dict(scale=scale, bias=bias, residual=residual, activation=activation)
+    if _plain.get():
+        return _int4.int4_matmul_ref(x, qweight, scales, group, **kw)
+    return _int4.int4_matmul(x, qweight, scales, group, **kw)
+
+
+def paged_attention(q, cache, block_tables, qpos, *, sm_scale=None):
+    """Decode attention, q (B, H, Dh), qpos (B,) (-1 = inactive row -> 0)."""
+    if _plain.get():
+        return _paged.paged_attention_ref(q, cache, block_tables, qpos, sm_scale=sm_scale)
+    return _paged.paged_attention(q, cache, block_tables, qpos, sm_scale=sm_scale)
+
+
+def prefill_attention(q, qpos, *, cache, block_tables, window: int = 0, sm_scale=None):
+    """Chunked-prefill attention over the paged pool, q (B, Sq, H, Dh),
+    qpos (B, Sq) (-1 = padding row -> 0).  The ring layout is not ported."""
+    kw = dict(cache=cache, block_tables=block_tables, window=window, sm_scale=sm_scale)
+    if _plain.get():
+        return _prefill.prefill_attention_ref(q, qpos, **kw)
+    return _prefill.prefill_attention(q, qpos, **kw)

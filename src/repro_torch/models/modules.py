@@ -1,0 +1,232 @@
+"""Shared model building blocks (PyTorch counterpart of ``repro.models.modules``).
+
+Params are plain dicts of tensors; ``init_*`` build them on an explicit device
+from an explicit ``torch.Generator``, and the ``apply``-style functions
+consume them.  Every linear role resolves from ``ModelConfig.ttd``/``.quant``
+to dense | tt (Tensor-Train cores, paper §II) | int4 (w4a16, paper §IV) and
+runs through ``kernels.dispatch``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from ..core.quant import quantize_int4
+from ..core.tt_linear import init_tt_linear
+from ..core.ttd import TTSpec
+from ..kernels import dispatch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def dt(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Linear: dense | tt | int4
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class LinearSpec:
+    kind: str  # dense | tt | int4
+    n_in: int
+    n_out: int
+    bias: bool = False
+    tt: TTSpec | None = None
+    quant_group: int = 128
+
+
+def linear_spec(cfg: ModelConfig, role: str, n_in: int, n_out: int, bias: bool = False,
+                *, ttd_block: bool = True) -> LinearSpec:
+    """TT if the role is compressed in this block and its dims factorize,
+    else int4 if ``n_in`` divides into quant groups, else dense."""
+    ttd = cfg.ttd
+    if ttd.enabled and ttd_block and role in ttd.roles:
+        ov = ttd.override_for(role)
+        try:
+            tt = TTSpec.make(n_in, n_out, ov.rank if ov else ttd.rank, d=ttd.d,
+                             in_modes=ov.in_modes if ov else None,
+                             out_modes=ov.out_modes if ov else None)
+            return LinearSpec("tt", n_in, n_out, bias=bias, tt=tt)
+        except ValueError:
+            pass  # un-factorizable dim: fall through to int4/dense
+    if cfg.quant.enabled and n_in % cfg.quant.group_size == 0:
+        return LinearSpec("int4", n_in, n_out, bias=bias, quant_group=cfg.quant.group_size)
+    return LinearSpec("dense", n_in, n_out, bias=bias)
+
+
+def init_linear(spec: LinearSpec, param_dtype, *, generator: torch.Generator,
+                device) -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    std = 1.0 / math.sqrt(spec.n_in)
+    if spec.kind == "dense":
+        w = torch.randn(spec.n_in, spec.n_out, generator=generator, device=device)
+        out["w"] = (w * std).to(param_dtype)
+    elif spec.kind == "tt":
+        out.update(init_tt_linear(spec.tt, generator=generator, device=device,
+                                  dtype=param_dtype))
+    elif spec.kind == "int4":
+        w = torch.randn(spec.n_out, spec.n_in, generator=generator, device=device)
+        out.update(quantize_int4(w * std, spec.quant_group))
+    else:
+        raise ValueError(spec.kind)
+    if spec.bias:
+        out["b"] = torch.zeros(spec.n_out, dtype=param_dtype, device=device)
+    return out
+
+
+def apply_linear(params, x, spec: LinearSpec, compute_dtype=torch.bfloat16, *,
+                 scale=None, residual=None, activation: str | None = None) -> torch.Tensor:
+    """y = act(x W [* scale] + b) [+ residual]; x: (..., n_in) -> (..., n_out)."""
+    x = x.to(compute_dtype)
+    bias = params["b"] if spec.bias else None
+    if spec.kind == "dense":
+        return dispatch.dense_linear(x, params["w"].to(compute_dtype), scale=scale,
+                                     bias=bias, residual=residual, activation=activation)
+    if spec.kind == "tt":
+        return dispatch.tt_linear(x, params["cores"], spec.tt, scale=scale, bias=bias,
+                                  residual=residual, activation=activation)
+    if spec.kind == "int4":
+        return dispatch.int4_matmul(x, params["qweight"], params["scales"],
+                                    group=spec.quant_group, scale=scale, bias=bias,
+                                    residual=residual, activation=activation)
+    raise ValueError(spec.kind)
+
+
+# ---------------------------------------------------------------------------
+# Norms and rotary positions
+# ---------------------------------------------------------------------------
+def init_norm(dim: int, param_dtype, *, device) -> dict[str, Any]:
+    return {"scale": torch.ones(dim, dtype=param_dtype, device=device)}
+
+
+def apply_norm(params, x, eps: float = 1e-5):
+    """RMSNorm in f32, cast back to the input dtype (the ported configs'
+    ``norm_type``; layernorm arrives with whisper)."""
+    y = F.rms_norm(x.to(torch.float32), (x.shape[-1],), params["scale"].to(torch.float32), eps)
+    return y.to(x.dtype)
+
+
+def rope_angles(positions, head_dim: int, theta: float, partial: float = 1.0):
+    """cos/sin tables for int positions (..., S), each (..., S, 1, head_dim):
+    the rotated half-pairs repeat the angle twice, and the un-rotated tail of a
+    partial rotary has cos 1 and sin 0, so ``apply_rope`` is two multiplies."""
+    half = int(head_dim * partial) // 2
+    inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                             device=positions.device) / half))
+    angle = positions.to(torch.float32)[..., None] * inv_freq
+    tail = head_dim - 2 * half
+    ones = angle.new_ones(*angle.shape[:-1], tail)
+    cos = torch.cat([torch.cos(angle), torch.cos(angle), ones], dim=-1)
+    sin = torch.cat([torch.sin(angle), torch.sin(angle), ones * 0], dim=-1)
+    return cos[..., None, :], sin[..., None, :]
+
+
+def apply_rope(x, cos, sin, partial: float = 1.0):
+    """x: (B, S, H, Dh) with tables from ``rope_angles``: the first half of
+    the rotated dims becomes x1·c − x2·s, the second x2·c + x1·s, the tail
+    passes through; computed in f32, cast back to x.dtype."""
+    half = int(x.shape[-1] * partial) // 2
+    rotated = torch.cat([-x[..., half:2 * half], x[..., :half], x[..., 2 * half:]], dim=-1)
+    return (x * cos + rotated * sin).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV-cache write (serve path; see serve/kv_cache.py for the layout)
+# ---------------------------------------------------------------------------
+def paged_write_index(block_tables, positions, block_size: int):
+    """Flat (block, slot) pool coordinates of each (B, S) position; ``-1``
+    (padding) maps to the reserved null block 0.  Computed once per step and
+    shared by every layer's ``paged_kv_update``."""
+    positions = positions.to(torch.int64)
+    bt = block_tables.to(torch.int64)
+    valid = positions >= 0
+    safe = positions.clamp(min=0)
+    idx = (safe // block_size).clamp(0, bt.shape[1] - 1)
+    rows = torch.where(valid, torch.gather(bt, 1, idx), 0).reshape(-1)
+    slots = torch.where(valid, safe % block_size, 0).reshape(-1)
+    return rows, slots
+
+
+def paged_kv_update(cache: dict, k_new, v_new, index) -> dict:
+    """Scatter one chunk of K/V (B, S, Hkv, Dh) into the paged pools at
+    ``index`` (from :func:`paged_write_index`), **in place**.
+
+    cache: ``{"k","v": (NB, BS, Hkv, Dh)}`` plus ``k_scale``/``v_scale``
+    ``(NB, BS, Hkv)`` f32 for int8 pools (each written token gets a
+    per-(block-slot, head) amax/127 scale).  Returns ``cache``.
+    """
+    hkv, dh = k_new.shape[-2:]
+    rows, slots = index
+    for nm, x in (("k", k_new), ("v", v_new)):
+        buf = cache[nm]
+        if nm + "_scale" in cache:
+            x32 = x.to(torch.float32)
+            sc = x32.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+            q = torch.round(x32 / sc[..., None]).to(torch.int8)
+            buf[rows, slots] = q.reshape(-1, hkv, dh)
+            cache[nm + "_scale"][rows, slots] = sc.reshape(-1, hkv)
+        else:
+            buf[rows, slots] = x.to(buf.dtype).reshape(-1, hkv, dh)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def mlp_specs(cfg: ModelConfig, ttd_block: bool) -> dict[str, LinearSpec]:
+    """Gated MLP (swiglu | geglu), the ported configs' ``act``."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "gate": linear_spec(cfg, "mlp_gate", d, f, ttd_block=ttd_block),
+        "up": linear_spec(cfg, "mlp_up", d, f, ttd_block=ttd_block),
+        "down": linear_spec(cfg, "mlp_down", f, d, ttd_block=ttd_block),
+    }
+
+
+def init_mlp(specs: dict[str, LinearSpec], param_dtype, *, generator, device):
+    return {nm: init_linear(sp, param_dtype, generator=generator, device=device)
+            for nm, sp in specs.items()}
+
+
+def apply_mlp(params, x, specs: dict[str, LinearSpec], cfg: ModelConfig, compute_dtype,
+              residual=None):
+    """The gate activation fuses into the gate projection's epilogue and the
+    block's skip connection into the down projection's (TTDLinear-Res)."""
+    act = "silu" if cfg.act == "swiglu" else "gelu"
+    g = apply_linear(params["gate"], x, specs["gate"], compute_dtype, activation=act)
+    u = apply_linear(params["up"], x, specs["up"], compute_dtype)
+    return apply_linear(params["down"], g * u, specs["down"], compute_dtype,
+                        residual=residual)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding (dense tables)
+# ---------------------------------------------------------------------------
+def init_embed(cfg: ModelConfig, param_dtype, *, generator, device):
+    std = 1.0 / math.sqrt(cfg.d_model)
+    t = torch.randn(cfg.vocab_size, cfg.d_model, generator=generator, device=device)
+    return {"table": (t * std).to(param_dtype)}
+
+
+def embed_lookup(params, ids, compute_dtype, cfg: ModelConfig | None = None):
+    """Dense row gather; a negative id wraps once, then ids clamp into range."""
+    if "cores" in params:
+        raise NotImplementedError("TT-compressed embeddings are not ported yet")
+    table = params["table"]
+    v = table.shape[0]
+    ids = ids.to(torch.int64)
+    ids = torch.where(ids < 0, ids + v, ids).clamp(0, v - 1)
+    return table[ids].to(compute_dtype)
+
+
+def unembed(x, table, compute_dtype):
+    """x: (..., D), table (V, D) -> logits (..., V) f32.  Operands are rounded
+    to the compute dtype, then multiplied in f32 (an f32-accumulating dot)."""
+    xs = x.to(compute_dtype).to(torch.float32)
+    return torch.matmul(xs, table.to(compute_dtype).to(torch.float32).T)

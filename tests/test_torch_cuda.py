@@ -1,0 +1,142 @@
+"""repro_torch's CUDA kernels vs their plain versions, on the card.
+
+Marked ``cuda``: each test skips (with its reason) where there is no CUDA
+device or no ``nvcc``, decided inside the test.  On a machine with an H100:
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+Tolerances: the linear kernels take 1e-4 (f32 inputs: summation order only)
+or 2e-2 / 1e-2 (bf16 inputs: bf16 output rounding, and the TT kernel keeps
+f32 stages where the plain version rounds each to bf16) of max|want| over
+the output, whose rows all share one scale.  Attention rows do not (a row
+at position 0 returns one value row, a row over many keys an average far
+smaller), so attention is held element by element against its own row:
+|d| <= atol * row max|want| + rtol * |want|, with atol = rtol = 1e-4 for f32
+and atol = rtol = 2^-6 (2-4 bf16 ulps of the row max and of the element) for
+bf16: the prefill kernel rounds P, and the K and V it dequantizes from int8
+pools, to bf16 for its mma products.
+"""
+import math
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if not (shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists()):
+        pytest.skip("needs nvcc to build the kernels")
+    from repro_torch.kernels import _build
+    _build.lib()
+    return torch.device("cuda")
+
+
+def _close(got, want, rel):
+    want = want.float()
+    scale = want.abs().max().item() or 1.0
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * scale, f"max |diff| {err} > {rel} * {scale}"
+
+
+def _close_rows(got, want, atol, rtol):
+    want = want.float()
+    d = (got.float() - want).abs()
+    lim = atol * want.abs().amax(-1, keepdim=True) + rtol * want.abs()
+    bad = d > lim
+    assert not bad.any(), (f"{int(bad.sum())} elements out of tolerance; worst |diff| "
+                           f"{d[bad].max().item()} against {lim[bad][d[bad].argmax()].item()}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("modes", [
+    ((16, 8, 8, 4), (4, 8, 8, 16), 16),     # llama2 attn_o
+    ((16, 8, 8, 4), (4, 4, 16, 43), 16),    # llama2 gate/up
+    ((107, 8, 4, 4), (8, 8, 8, 8), 16),     # chatglm3 down
+    ((8, 4, 2), (3, 5, 7), 4),
+    ((24,), (10,), 1),
+])
+@pytest.mark.parametrize("b", [1, 7, 130])
+def test_tt_linear_kernel(dev, modes, dtype, b):
+    from repro_torch.core.ttd import TTSpec
+    from repro_torch.kernels import tt_linear as k
+    spec = TTSpec.make(0, 0, modes[2], d=len(modes[0]), in_modes=modes[0], out_modes=modes[1])
+    g = torch.Generator(device=dev).manual_seed(b)
+    cores = [(torch.randn(s, generator=g, device=dev) / math.sqrt(s[0])).to(dtype)
+             for s in spec.core_matrix_shapes()]
+    x = torch.randn(b, spec.n_in, generator=g, device=dev).to(dtype)
+    bias = torch.randn(spec.n_out, generator=g, device=dev)
+    res = torch.randn(b, spec.n_out, generator=g, device=dev).to(dtype)
+    for kw in ({}, dict(bias=bias, activation="silu"), dict(scale=bias, residual=res),
+               dict(activation="gelu", residual=res)):
+        n0 = k.launches
+        got = k.tt_linear(x, cores, spec, **kw)
+        assert k.launches == n0 + spec.d
+        want = k.tt_linear_ref(x.float(), [c.float() for c in cores], spec,
+                               **{a: (v.float() if torch.is_tensor(v) else v)
+                                  for a, v in kw.items()})
+        _close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("b,k_in,m,group", [
+    (1, 256, 96, 128), (8, 4096, 4096, 128), (8, 11008, 4096, 128),
+    (33, 512, 200, 64), (300, 4096, 11008, 128), (2048, 256, 64, 32)])
+def test_int4_matmul_kernel(dev, b, k_in, m, group):
+    from repro_torch.core.quant import quantize_int4
+    from repro_torch.kernels import int4_matmul as k
+    g = torch.Generator(device=dev).manual_seed(b)
+    q = quantize_int4(torch.randn(m, k_in, generator=g, device=dev) / math.sqrt(k_in), group)
+    x = torch.randn(b, k_in, generator=g, device=dev).to(torch.bfloat16)
+    res = torch.randn(b, m, generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn(m, generator=g, device=dev)
+    for kw in ({}, dict(bias=bias, activation="silu"), dict(residual=res, scale=bias)):
+        got = k.int4_matmul(x, q["qweight"], q["scales"], group, **kw)
+        want = k.int4_matmul_ref(x.float(), q["qweight"], q["scales"], group,
+                                 **{a: (v.float() if torch.is_tensor(v) else v)
+                                    for a, v in kw.items()})
+        _close(got, want, 1e-2)
+
+
+def _pool(nb, bs, hkv, dh, dtype, dev, g):
+    k = torch.randn(nb, bs, hkv, dh, generator=g, device=dev)
+    v = torch.randn(nb, bs, hkv, dh, generator=g, device=dev)
+    if dtype != torch.int8:
+        return {"k": k.to(dtype), "v": v.to(dtype)}
+    out = {}
+    for nm, x in (("k", k), ("v", v)):
+        sc = x.abs().amax(-1).clamp(min=1e-8) / 127.0
+        out[nm] = torch.round(x / sc[..., None]).to(torch.int8)
+        out[nm + "_scale"] = sc
+    return out
+
+
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16),
+                                      (torch.bfloat16, torch.int8)])
+@pytest.mark.parametrize("h,hkv,dh", [(4, 4, 128), (8, 2, 64), (32, 2, 128)])
+@pytest.mark.parametrize("sq,window", [(1, 0), (70, 0), (9, 5)])
+def test_paged_attention_kernels(dev, sq, window, h, hkv, dh, qdt, kvdt):
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefill_attention as pf
+    g = torch.Generator(device=dev).manual_seed(sq * 100 + h)
+    b, bs, w = 3, 16, 12
+    nb = 1 + b * w
+    cache = _pool(nb, bs, hkv, dh, kvdt, dev, g)
+    bt = torch.randperm(nb - 1, generator=g, device=dev)[:b * w].reshape(b, w).to(torch.int32) + 1
+    q = torch.randn(b, sq, h, dh, generator=g, device=dev).to(qdt)
+    start = torch.tensor([0, 37, 120], device=dev)
+    qpos = (start[:, None] + torch.arange(sq, device=dev)[None]).to(torch.int32)
+    qpos[1, -1] = -1
+    qpos[2, 0] = -1
+    if sq == 1:
+        got = pa.paged_attention(q[:, 0].contiguous(), cache, bt, qpos[:, 0].contiguous())[:, None]
+    else:
+        got = pf.prefill_attention(q, qpos, cache=cache, block_tables=bt, window=window)
+    want = pa.paged_attention_plain(q.float(), {k: v for k, v in cache.items()}, bt, qpos,
+                                    window=window)
+    _close_rows(got, want, *((1e-4, 1e-4) if qdt == torch.float32 else (2.0 ** -6, 2.0 ** -6)))
+    assert not got[qpos < 0].any()

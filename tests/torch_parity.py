@@ -1,0 +1,44 @@
+"""Shared fixtures for the repro_torch parity tests (tests/test_torch_*.py).
+
+``jax_params`` builds a JAX param tree for a config without running
+``init_lm`` (whose eager int4 quantization and TT init cost ~12 s on the
+CPU): ``jax.eval_shape`` gives the tree's structure, shapes and dtypes, and
+seeded numpy fills every leaf at a scale that keeps activations O(1).
+"""
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.models import transformer as jtf
+
+
+def _fill(name: str, in_cores: bool, shape, cfg, rng):
+    if name == "qweight":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    if name == "scales":  # int4 group scales: dequantized weight var ~ 1/n_in
+        n_in = shape[-1] * cfg.quant.group_size
+        return rng.uniform(0.5, 1.5, shape) / np.sqrt(21.0 * n_in)
+    if name == "scale":  # norm gains
+        return 1.0 + 0.1 * rng.standard_normal(shape)
+    if name in ("b", "bias"):
+        return 0.1 * rng.standard_normal(shape)
+    if in_cores:  # per-stage variance ~constant: std = 1/sqrt(contraction rows)
+        return rng.standard_normal(shape) / np.sqrt(shape[-2])
+    fan = shape[-1] if name == "table" else shape[-2]  # table (V, D); w (…, in, out)
+    return rng.standard_normal(shape) / np.sqrt(fan)
+
+
+def jax_params(cfg, seed=0):
+    """Seeded JAX param tree with ``init_lm``'s structure, shapes and dtypes."""
+    shapes = jax.eval_shape(partial(jtf.init_lm, cfg=cfg), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+    out = []
+    for path, leaf in leaves:
+        keys = [str(p.key) for p in path if hasattr(p, "key")]
+        x = _fill(keys[-1], "cores" in keys, leaf.shape, cfg, rng)
+        out.append(jnp.asarray(np.asarray(x).astype(np.float32) if x.dtype != np.uint8 else x,
+                               leaf.dtype))
+    return jax.tree_util.tree_unflatten(treedef, out)
