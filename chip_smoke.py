@@ -5,23 +5,26 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``src/repro_torch/csrc`` (first use),
+It builds the six CUDA kernels from ``src/repro_torch/csrc`` (first use),
 then:
 
 1. kernel phases — each kernel against its plain PyTorch version at the
-   serving path's shapes, with its time, the plain version's time, one
-   PyTorch library call's time as a yardstick, and the card's bound;
-2. a logits check at the serve phase's geometry — the full-width llama2-7b
-   session with 8 slots prefilling the serve phase's 8 prompts (up to 1536
-   tokens, several 256-token chunks) and then taking 4 decode steps, through
-   the kernels against the same steps through the plain versions
-   (``dispatch.force_plain()``) on the card;
-3. the serve phase — the paged continuous-batching ``Engine`` serving those
-   8 requests on the full-width llama2-7b serving config (random weights from
-   a seed), with every kernel's launch counter reset just before and read
-   just after;
-4. a profile of full-width decode steps: wall time against device kernel
-   time (``torch.profiler``), the device's busy share and the top kernels.
+   serving paths' shapes, with its time, the plain version's time, one
+   PyTorch library call's time as a yardstick where one exists, and the
+   card's bound;
+2. for each of the two serving paths — llama2-7b (paged K/V) and
+   recurrentgemma-2b (griffin: RG-LRU state and windowed attention rings) at
+   full width and depth:
+   a. a logits check at the serve phase's geometry — 8 slots prefilling the
+      serve phase's 8 prompts in 256-token chunks, then 4 decode steps,
+      through the kernels against the same steps through the plain versions
+      (``dispatch.force_plain()``) on the card;
+   b. the serve phase — the continuous-batching ``Engine`` serving those 8
+      requests (random weights from a seed), with every kernel's launch
+      counter reset just before and read just after;
+   c. a profile of decode steps (and, for griffin, of one prefill chunk):
+      wall time against device kernel time (``torch.profiler``), the
+      device's busy share and the top kernels.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  It exits
@@ -43,6 +46,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 SEED = 0
 # Attention outputs are held element by element: |got - want| <= ATTN_ATOL *
 # max|want| of the element's own (query, head) row + ATTN_RTOL * |want|, each
@@ -60,11 +64,46 @@ SOURCES = {
                         "src/repro/kernels/paged_attention.py:78"),
     "prefill_attention": ("src/repro_torch/csrc/prefill_attention.cu",
                           "src/repro/kernels/prefill_attention.py:118"),
+    "ring_attention": ("src/repro_torch/csrc/ring_attention.cu",
+                       "src/repro/kernels/prefill_attention.py:118"),
+    "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu", "src/repro/kernels/scan_rglru.py:87"),
+}
+# kernel -> (wrapper module, its launch counter, its plain-on-CUDA counter)
+COUNTERS = {
+    "tt_linear": ("tt_linear", "launches", "plain_cuda_calls"),
+    "int4_matmul": ("int4_matmul", "launches", "plain_cuda_calls"),
+    "paged_attention": ("paged_attention", "launches", "plain_cuda_calls"),
+    "prefill_attention": ("prefill_attention", "launches", "plain_cuda_calls"),
+    "ring_attention": ("prefill_attention", "ring_launches", "ring_plain_cuda_calls"),
+    "rglru_scan": ("scan_rglru", "launches", "plain_cuda_calls"),
+}
+# the kernels each serving path must launch
+PATH_KERNELS = {
+    "llama2-7b": ("tt_linear", "int4_matmul", "paged_attention", "prefill_attention"),
+    "recurrentgemma-2b": ("tt_linear", "int4_matmul", "ring_attention", "rglru_scan"),
 }
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def counters():
+    """{kernel: (launches, plain calls on CUDA)} read from the wrappers."""
+    import importlib
+    out = {}
+    for name, (mod, launch, plain) in COUNTERS.items():
+        m = importlib.import_module(f"repro_torch.kernels.{mod}")
+        out[name] = (getattr(m, launch), getattr(m, plain))
+    return out
+
+
+def reset_counters():
+    import importlib
+    for mod, launch, plain in COUNTERS.values():
+        m = importlib.import_module(f"repro_torch.kernels.{mod}")
+        setattr(m, launch, 0)
+        setattr(m, plain, 0)
+
+
+def bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -110,7 +149,7 @@ class Smoke:
         return ratio.max().item()
 
     def record(self, kernel, label, got, want, rel_tol, why, ms, plain_ms, lib_ms, lib_what,
-               nbytes, flops):
+               nbytes, flops, peak_flops=BF16_FLOPS):
         """``rel_tol`` is a fraction of max|want| over the whole output, or
         ``"rows"`` for the element-wise attention criterion above."""
         err = (got.float() - want.float()).abs().max().item()
@@ -123,7 +162,7 @@ class Smoke:
             tol = rel_tol * (want.float().abs().max().item() or 1.0)
             ok = math.isfinite(err) and err <= tol
             tol_text = f"tol={tol:.3e}"
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, peak_flops)
         print(f"[{kernel}] {label}: max|d|={err:.3e} {tol_text} ({why}) "
               f"{'ok' if ok else 'FAIL'} | kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={'none' if lib_ms is None else f'{lib_ms:.4f}'} ({lib_what}) "
@@ -259,49 +298,162 @@ class Smoke:
         # The criterion must see a kernel that skips the last block of a long
         # row: the longest row's 16 newest keys dropped has to fail it.
         row = int(np.argmax(ctx))
-        short = self.drop_newest_keys(q, cache, bt, qpos, row, bs)
-        want_row = want[row:row + 1] if not decode else want[row][None, None]
-        ratio = self.row_ratio(short, want_row)
-        print(f"[{name}] {label}: the longest row ({int(ctx[row])} keys) with its newest "
-              f"{bs} keys dropped sits at {ratio:.2f} of the tolerance (must exceed 1)",
-              flush=True)
-        if not ratio > 1.0:
-            self.failures.append(f"{name} {label}: tolerance blind to a dropped last block")
-
-    def drop_newest_keys(self, q, cache, bt, qpos, row, n):
-        """Plain f32 attention of sequence ``row`` with the ``n`` newest keys
-        of its context left out: what a kernel that stops one block early
-        would return."""
-        torch = self.torch
-        from repro_torch.kernels import paged_attention as pa
         k, v = pa.gather_paged_kv(cache, bt[row:row + 1])
-        _, sq, h, dh = q.shape
-        hkv = k.shape[2]
-        qr, pr = q[row:row + 1].float(), qpos[row:row + 1]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qr.reshape(1, sq, hkv, h // hkv, dh),
-                         k) / math.sqrt(dh)
-        kpos = torch.arange(k.shape[1], device=self.dev)
-        cut = int(pr.max().item()) + 1 - n
-        mask = (kpos <= pr[..., None]) & (pr >= 0)[..., None] & (kpos < cut)
-        s = s.masked_fill(~mask[:, None, None], float("-inf"))
-        p = torch.softmax(s, dim=-1).nan_to_num(0.0)  # fully masked rows give 0
-        o = torch.einsum("bhgqk,bkhd->bhgqd", p, v)
-        return o.permute(0, 3, 1, 2, 4).reshape(1, sq, h, dh).to(q.dtype)
+        kpos = torch.arange(k.shape[1], dtype=torch.int32, device=self.dev)[None]
+        want_row = want[row:row + 1] if not decode else want[row][None, None]
+        self.dropped_keys_check(name, label, q[row:row + 1], k, v, qpos[row:row + 1], kpos,
+                                want_row, int(ctx[row]))
+
+    def dropped_keys_check(self, name, label, q, k, v, qpos, kpos, want, n_keys, window=0,
+                           k_scale=None, v_scale=None):
+        """Plain attention of one sequence with the 16 newest keys it sees
+        left out — what a kernel that stops a tile early would return — must
+        fail the element-wise criterion against ``want``."""
+        from repro_torch.kernels.paged_attention import ring_attention_plain
+        cut = int(qpos.max().item()) + 1 - 16
+        kpos = kpos.clone()
+        kpos[kpos >= cut] = -1
+        short = ring_attention_plain(q, k, v, qpos, kpos, window=window, k_scale=k_scale,
+                                     v_scale=v_scale)
+        ratio = self.row_ratio(short, want)
+        print(f"[{name}] {label}: the longest row ({n_keys} keys) with its 16 newest keys "
+              f"dropped sits at {ratio:.2f} of the tolerance (must exceed 1)", flush=True)
+        if not ratio > 1.0:
+            self.failures.append(f"{name} {label}: tolerance blind to dropped keys")
+
+    def ring_phase(self, label, sq, h, hkv, dh, window, wr, int8, ctx):
+        """The ring kernel over 8 per-slot rings, each holding the last
+        min(n, WR) positions of its context n in ring order (a context past
+        WR has wrapped, n = 0 is an idle slot), with the queries of the chunk
+        (or decode token) that ends at n."""
+        torch, np = self.torch, self.np
+        import torch.nn.functional as F
+        from repro_torch.kernels import prefill_attention as pf
+        b = len(ctx)
+        kpos_np, qpos_np = np.full((b, wr), -1), np.full((b, sq), -1)
+        for i, n in enumerate(ctx):
+            p = np.arange(max(0, n - wr), n)
+            kpos_np[i, p % wr] = p
+            m = min(n, sq)
+            qpos_np[i, :m] = np.arange(n - m, n)
+        kpos = torch.from_numpy(kpos_np.astype(np.int32)).to(self.dev)
+        qpos = torch.from_numpy(qpos_np.astype(np.int32)).to(self.dev)
+        kf, vf = self.randn(b, wr, hkv, dh), self.randn(b, wr, hkv, dh)
+        ring = {}
+        for nm, x in (("k", kf), ("v", vf)):
+            if int8:
+                sc = x.abs().amax(-1).clamp(min=1e-8) / 127.0
+                ring[nm] = torch.round(x / sc[..., None]).to(torch.int8)
+                ring[nm + "_scale"] = sc
+            else:
+                ring[nm] = x.to(torch.bfloat16)
+        del kf, vf
+        q = self.randn(b, sq, h, dh, dtype=torch.bfloat16)
+        kw = dict(k=ring["k"], v=ring["v"], kpos=kpos, window=window,
+                  k_scale=ring.get("k_scale"), v_scale=ring.get("v_scale"))
+        fn = lambda i: pf.ring_attention(q, qpos, **kw)  # noqa: E731
+        ref = lambda i: pf.ring_attention_ref(q, qpos, **kw)  # noqa: E731
+        got, want = fn(0), ref(0)
+        ms = self.time_ms(fn)
+        plain_ms = self.time_ms(ref, iters=3)
+        vis_np = (kpos_np[:, None, :] >= 0) & (qpos_np[:, :, None] >= 0) \
+            & (kpos_np[:, None, :] <= qpos_np[:, :, None])
+        if window:
+            vis_np &= qpos_np[:, :, None] - kpos_np[:, None, :] < window
+        vis = torch.from_numpy(vis_np).to(self.dev)
+        kb, vb = (ring[nm].float() * ring[nm + "_scale"][..., None] if int8 else ring[nm]
+                  for nm in ("k", "v"))
+        kb, vb = (x.to(torch.bfloat16).transpose(1, 2).contiguous() for x in (kb, vb))
+        qt = q.transpose(1, 2).contiguous()
+        lib_ms = self.time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kb, vb, attn_mask=vis[:, None], enable_gqa=hkv != h))
+        del kb, vb
+        # each key visible to some live query of its sequence is read once
+        need = vis_np.any(axis=1).sum()
+        elt = 1 if int8 else 2
+        nbytes = (2 * h * dh * (qpos_np >= 0).sum() + 2 * q.numel()
+                  + 2 * need * hkv * dh * elt + (2 * 4 * need * hkv if int8 else 0)
+                  + 4 * kpos.numel() + 4 * qpos.numel())
+        flops = 4.0 * vis_np.sum() * h * dh
+        label = f"{label} B={b} Sq={sq} H{h}/Hkv{hkv}/Dh{dh} WR={wr} window={window} " \
+                f"{'int8' if int8 else 'bf16'} rings, contexts {list(ctx)}"
+        self.record("ring_attention", label, got, want, "rows",
+                    "bf16 output rounding; both read the same ring values", ms, plain_ms,
+                    lib_ms, "scaled_dot_product_attention over the ring with the "
+                    "visibility mask", nbytes, flops)
+        row = int(vis_np.sum(axis=(1, 2)).argmax())  # the row with the most keys
+        sl = slice(row, row + 1)
+        self.dropped_keys_check("ring_attention", label, q[sl], ring["k"][sl], ring["v"][sl],
+                                qpos[sl], kpos[sl], want[sl], ctx[row], window=window,
+                                k_scale=ring["k_scale"][sl] if int8 else None,
+                                v_scale=ring["v_scale"][sl] if int8 else None)
+
+    def rglru_phase(self, s):
+        """The RG-LRU scan at B 8, W 2560 over S steps (S = 1: decode): slot 1
+        idle, slots 2 and 3 tail-padded (S > 1).  Real steps are held to a
+        tolerance, pad steps and idle rows bitwise."""
+        torch = self.torch
+        from repro_torch.kernels import scan_rglru as k
+        b, w = 8, 2560
+        log_a = -8.0 * math.log1p(math.exp(0.7)) * torch.sigmoid(self.randn(b, s, w))
+        gx, h0 = self.randn(b, s, w), self.randn(b, w)
+        pos = torch.arange(s, device=self.dev, dtype=torch.int32)[None].repeat(b, 1)
+        pos[1] = -1
+        if s > 1:
+            pos[2, 100:] = -1
+            pos[3, 200:] = -1
+        bf16 = torch.bfloat16
+
+        def run(i, fn=k.rglru_scan):
+            return fn(log_a, gx, h0, pos, scan_dtype=bf16)
+
+        (h, last), (hw, lw) = run(0), run(0, k.rglru_scan_ref)
+        ms = self.time_ms(run)
+        plain_ms = self.time_ms(lambda i: run(i, k.rglru_scan_ref), iters=3)
+        bitwise = {"idle row h_last == h0": torch.equal(last[1], h0[1]),
+                   "idle row h == h0": torch.equal(h[1], h0[1].to(bf16).expand(s, w))}
+        if s > 1:
+            bitwise["padded tail h == last real h"] = torch.equal(
+                h[2, 100:], h[2, 99:100].expand(s - 100, w))
+        last_err = (last - lw).abs().max().item() / lw.abs().max().item()
+        real = int((pos >= 0).sum())
+        nbytes = 2 * 4 * real * w + 4 * b * w + 4 * pos.numel() + 2 * b * s * w + 4 * b * w
+        label = f"{'decode' if s == 1 else 'prefill'} B={b} S={s} W={w} f32 in, bf16 h"
+        print(f"[rglru_scan] {label}: bitwise {bitwise}; h_last max|d|/max|want| "
+              f"{last_err:.2e} (tol 1e-5: f32 state, expf/sqrtf vs torch's exp/sqrt)",
+              flush=True)
+        for what, good in bitwise.items():
+            if not good:
+                self.failures.append(f"rglru_scan {label}: {what} not bitwise")
+        if not last_err <= 1e-5:
+            self.failures.append(f"rglru_scan {label}: h_last {last_err}")
+        self.record("rglru_scan", label, h, hw, 2.0 ** -7,
+                    "bf16 h: one rounding of an f32 state that differs by ~1 f32 ulp a step",
+                    ms, plain_ms, None, "none: torch has no linear-recurrence scan op",
+                    nbytes, 8.0 * real * w, F32_FLOPS)
 
     # -- logits check ---------------------------------------------------------
-    def logits_check(self, cfg, params, prompts, decode_steps: int = 4):
+    def session(self, cfg, max_len):
+        """The serving session of ``cfg`` at the serve geometry (8 slots,
+        256-token chunks, bf16 cache) with its initial state."""
+        from repro_torch.models.sessions import SessionSpec, make_session
+        sess = make_session(cfg, SessionSpec(slots=8, max_len=max_len, prefill_chunk=256,
+                                             block_size=16, cache_dtype="bfloat16"),
+                            device=self.dev)
+        width = max_len // 16
+        bt = self.np.arange(1, 1 + 8 * width, dtype=self.np.int32).reshape(8, width)
+        return sess, sess.with_tables(sess.init_state(), bt)
+
+    def logits_check(self, cfg, params, prompts, max_len, every_position, decode_steps=4):
         """The serve phase's geometry (8 slots, its prompts in 256-token
         chunks, then ``decode_steps`` decode steps on fixed random tokens)
-        through the kernels and through the plain versions: the logits of
-        every prompt position and every decode step are compared."""
+        through the kernels and through the plain versions.  The logits of
+        every prompt position are compared, or with ``every_position`` off
+        (a 256000-token vocabulary) those of each row's last position in
+        each chunk, and the logits of every decode step."""
         torch, np = self.torch, self.np
         from repro_torch.kernels import dispatch
-        from repro_torch.models.sessions import SessionSpec, make_session
-        slots, chunk, max_len = len(prompts), 256, 2048
-        spec = SessionSpec(slots=slots, max_len=max_len, prefill_chunk=chunk, block_size=16,
-                           cache_dtype="bfloat16")
-        width = max_len // 16
-        bt = np.arange(1, 1 + slots * width, dtype=np.int32).reshape(slots, width)
+        slots, chunk = len(prompts), 256
         lens = np.array([len(p) for p in prompts])
         n_chunks = -(-int(lens.max()) // chunk)
         toks = np.zeros((slots, n_chunks * chunk), np.int32)
@@ -314,14 +466,20 @@ class Smoke:
         dec_pos = torch.from_numpy(lens.astype(np.int32)).to(self.dev)
         out = {}
         for plain in (False, True):
-            sess = make_session(cfg, spec, device=self.dev)
-            state = sess.with_tables(sess.init_state(), bt)
+            sess, state = self.session(cfg, max_len)
             pre, dec = [], []
             with dispatch.force_plain() if plain else contextlib.nullcontext():
                 for c in range(n_chunks):
                     sl = slice(c * chunk, (c + 1) * chunk)
-                    lg, state = sess.prefill_chunk(params, state, toks[:, sl], pos[:, sl])
-                    pre.append(lg[pos[:, sl] >= 0])
+                    real = pos[:, sl] >= 0
+                    if every_position:
+                        lg, state = sess.prefill_chunk(params, state, toks[:, sl], pos[:, sl])
+                        pre.append(lg[real])
+                    else:
+                        cols = (real.sum(1) - 1).clamp(min=0)
+                        lg, state = sess.prefill_chunk(params, state, toks[:, sl], pos[:, sl],
+                                                       logit_cols=cols)
+                        pre.append(lg[real.any(1)])
                 for i in range(decode_steps):
                     lg, state = sess.decode_step(params, state, dec_toks[i][:, None].contiguous(),
                                                  dec_pos + i)
@@ -330,6 +488,7 @@ class Smoke:
             del state, pre, dec
             torch.cuda.empty_cache()
         ok = True
+        which = "every prompt position" if every_position else "each row's last position per chunk"
         for k, name in enumerate(("prefill", "decode")):
             a, b = out[False][k], out[True][k]
             scale = b.abs().max().item()
@@ -343,28 +502,26 @@ class Smoke:
             good = all(map(math.isfinite, (rel, mean_rel, gap))) and rel <= 0.1 and \
                 mean_rel <= 0.05 and gap <= 0.05
             ok &= good
-            print(f"[logits] {name} ({a.shape[0]} rows: prompts {lens.tolist()} in {n_chunks} "
-                  f"chunks of {chunk}, {decode_steps} decode steps x {slots} slots): "
-                  f"max|d|/max|ref|={rel:.4f} (tol 0.1) "
+            print(f"[logits {cfg.name}] {name} ({a.shape[0]} rows: "
+                  f"{which if name == 'prefill' else 'every step'}; prompts {lens.tolist()} "
+                  f"in {n_chunks} chunks of {chunk}, {decode_steps} decode steps x {slots} "
+                  f"slots): max|d|/max|ref|={rel:.4f} (tol 0.1) "
                   f"mean|d|/mean|ref|={mean_rel:.4f} (tol 0.05) greedy-token logit gap "
                   f"{gap:.4f} of max|ref| (tol 0.05; argmax agreement {agree:.3f}) "
-                  f"{'ok' if good else 'FAIL'} -- bf16 through 32 layers: kernels and plain "
-                  "versions sum in different orders, so their bf16 roundings differ and the "
-                  "differences compound layer by layer", flush=True)
+                  f"{'ok' if good else 'FAIL'} -- bf16 through {cfg.n_layers} layers: kernels "
+                  "and plain versions sum in different orders, so their bf16 roundings "
+                  "differ and the differences compound layer by layer", flush=True)
         del out
         torch.cuda.empty_cache()
         if not ok:
-            self.failures.append("full-width logits check")
+            self.failures.append(f"{cfg.name} full-width logits check")
 
-    # -- serve phase (the main path) -----------------------------------------
-    def serve(self, cfg, params, card, prompts):
+    # -- serve phase (a main path) ---------------------------------------------
+    def serve(self, cfg, params, card, prompts, max_len):
         torch = self.torch
         np = self.np
-        from repro_torch.kernels import int4_matmul, paged_attention, prefill_attention, tt_linear
         from repro_torch.serve.engine import Engine
-        mods = {"tt_linear": tt_linear, "int4_matmul": int4_matmul,
-                "paged_attention": paged_attention, "prefill_attention": prefill_attention}
-        eng = Engine(cfg, params, slots=8, max_len=2048, block_size=16, prefill_chunk=256,
+        eng = Engine(cfg, params, slots=8, max_len=max_len, block_size=16, prefill_chunk=256,
                      prefill_batch=4, cache_dtype="bfloat16", device=self.dev)
         dec = {"t": 0.0, "tokens": 0}
         orig_dispatch, orig_collect = eng._decode_dispatch, eng._decode_collect
@@ -380,75 +537,89 @@ class Smoke:
 
         eng._decode_dispatch, eng._decode_collect = dispatch, collect
         torch.cuda.synchronize()
-        for m in mods.values():
-            m.launches = 0
-            m.plain_cuda_calls = 0
+        reset_counters()
         t0 = time.perf_counter()
         reqs = [eng.submit(p, max_tokens=32) for p in prompts]
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: m.launches for k, m in mods.items()}
-        plain = {k: m.plain_cuda_calls for k, m in mods.items()}
+        counts = counters()
+        launches = {k: n for k, (n, _) in counts.items()}
+        plain = {k: n for k, (_, n) in counts.items()}
         ttft = np.array([r.t_first - r.t_submit for r in reqs])
-        print(f"[serve] prompts={[len(p) for p in prompts]} launches={launches} "
+        print(f"[serve {cfg.name}] prompts={[len(p) for p in prompts]} launches={launches} "
               f"plain_calls_on_cuda={plain}", flush=True)
-        print(f"[serve] {card}: TTFT p50={np.median(ttft) * 1e3:.1f} ms "
+        print(f"[serve {cfg.name}] {card}: TTFT p50={np.median(ttft) * 1e3:.1f} ms "
               f"max={ttft.max() * 1e3:.1f} ms; decode {dec['tokens']} tokens in "
               f"{dec['t']:.3f} s = {dec['tokens'] / dec['t']:.1f} tokens/s; "
-              f"run wall {wall:.2f} s", flush=True)
+              f"run wall {wall:.2f} s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         checks = {
             "every request finished with 32 tokens": all(
                 r.done and len(r.out_tokens) == 32 for r in reqs),
-            "pool drained": eng.num_free_blocks == eng.manager.num_blocks - 1,
-            "every kernel launched": all(v > 0 for v in launches.values()),
+            "pool drained": eng.manager is None
+            or eng.num_free_blocks == eng.manager.num_blocks - 1,
+            "every kernel of the path launched": all(
+                launches[k] > 0 for k in PATH_KERNELS[cfg.name]),
             "no plain version on CUDA": not any(plain.values()),
             "tokens in vocab": all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
         }
         for what, good in checks.items():
             if not good:
-                self.failures.append(f"serve: {what}")
-        print(f"[serve] checks: {checks}", flush=True)
+                self.failures.append(f"serve {cfg.name}: {what}")
+        print(f"[serve {cfg.name}] checks: {checks}", flush=True)
         return launches
 
-
     # -- decode-step profile ---------------------------------------------------
-    def profile_decode(self, cfg, params, card, steps: int = 5):
+    def profile(self, cfg, params, card, max_len, steps: int = 5, with_chunk: bool = False):
         """Wall time vs device kernel time of full-width decode steps (8 slots
-        at ~1 K context): the device's busy share and the top kernels."""
+        at ~1 K context) and, with ``with_chunk``, of one 256-token prefill
+        chunk for all 8 slots: the device's busy share and the top kernels."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
-        from repro_torch.models.sessions import SessionSpec, make_session
-        sess = make_session(cfg, SessionSpec(slots=8, max_len=2048, prefill_chunk=256,
-                                             block_size=16, cache_dtype="bfloat16"),
-                            device=self.dev)
-        bt = self.np.arange(1, 1 + 8 * 128, dtype=self.np.int32).reshape(8, 128)
-        state = sess.with_tables(sess.init_state(), bt)
+        sess, state = self.session(cfg, max_len)
         toks = torch.randint(0, cfg.vocab_size, (8, 256), device=self.dev,
                              dtype=torch.int32, generator=self.gen)
         pos = torch.arange(256, device=self.dev, dtype=torch.int32)[None].repeat(8, 1)
+        cols = torch.full((8,), 255, device=self.dev)
         for c in range(4):
-            _, state = sess.prefill_chunk(params, state, toks, pos + 256 * c)
+            _, state = sess.prefill_chunk(params, state, toks, pos + 256 * c, logit_cols=cols)
         dtok = toks[:, :1].contiguous()
         dpos = torch.full((8,), 1024, device=self.dev, dtype=torch.int32)
         for i in range(2):
             _, state = sess.decode_step(params, state, dtok, dpos + i)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+
+        def report(what, run, n):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            events = [e for e in prof.key_averages() if e.device_time_total > 0
+                      and not e.key.startswith(("aten::", "cuda"))]
+            device_s = sum(e.self_device_time_total for e in events) / 1e6
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+            print(f"[profile {cfg.name}] {card}: {what} wall {wall / n * 1e3:.2f} ms, device "
+                  f"kernel time {device_s / n * 1e3:.2f} ms, device busy share "
+                  f"{device_s / wall:.3f}; top kernels per call: "
+                  + "; ".join(f"{e.key[:48]} {e.self_device_time_total / n / 1e3:.3f} ms"
+                              for e in top), flush=True)
+
+        def decode():
+            nonlocal state
             for i in range(steps):
                 _, state = sess.decode_step(params, state, dtok, dpos + 2 + i)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = [e for e in prof.key_averages() if e.device_time_total > 0
-                  and not e.key.startswith(("aten::", "cuda"))]
-        device_s = sum(e.self_device_time_total for e in events) / 1e6
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-        print(f"[profile] {card}: decode step (8 slots, ctx ~1 K) wall "
-              f"{wall / steps * 1e3:.2f} ms, device kernel time {device_s / steps * 1e3:.2f} ms, "
-              f"device busy share {device_s / wall:.3f}; top kernels per step: "
-              + "; ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.2f} ms"
-                          for e in top), flush=True)
+
+        report("decode step (8 slots, ctx ~1 K)", decode, steps)
+        if with_chunk:
+            def chunk():
+                nonlocal state
+                _, state = sess.prefill_chunk(params, state, toks, pos + 1024 + steps + 2,
+                                              logit_cols=cols)
+            report("prefill chunk (8 slots x 256 tokens at ctx ~1 K)", chunk, 1)
+        del state
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -459,8 +630,8 @@ def main() -> int:
     import numpy as np  # noqa: F401
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.models import griffin, transformer
     from repro_torch.models.modules import linear_spec
-    from repro_torch.models.transformer import init_lm
     from repro_torch.serve.steps import serve_config_of
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -475,47 +646,68 @@ def main() -> int:
 
     s = Smoke()
     t_phase = time.perf_counter()
-    for arch in ("llama2-7b", "chatglm3-6b"):
+    for arch in ("llama2-7b", "chatglm3-6b", "recurrentgemma-2b"):
         cfg = get_config(arch)
-        roles = ("attn_o", "mlp_gate", "mlp_up", "mlp_down") if arch == "llama2-7b" \
-            else ("attn_o", "mlp_gate", "mlp_down")  # chatglm3 gate and up share a spec
+        roles = {"llama2-7b": ("attn_o", "mlp_gate", "mlp_up", "mlp_down")}.get(
+            arch, ("attn_o", "mlp_gate", "mlp_down"))  # gate and up share a spec
         for role in roles:
             n_in, n_out = {"attn_o": (cfg.q_dim, cfg.d_model),
                            "mlp_down": (cfg.d_ff, cfg.d_model)}.get(role, (cfg.d_model, cfg.d_ff))
             spec = linear_spec(cfg, role, n_in, n_out).tt
             for b in (8, 2048):
                 s.tt_phase(arch, role.replace("mlp_", ""), spec, b)
-    for k_in, m in ((4096, 4096), (4096, 11008), (11008, 4096)):
+    for k_in, m in ((4096, 4096), (4096, 11008), (11008, 4096), (2560, 2560), (2560, 256)):
         for b in (8, 2048):
             s.int4_phase(k_in, m, b)
     for decode in (True, False):
         for hkv in (32, 2):
             for int8 in (False, True):
                 s.attn_phase(decode, hkv, int8)
+    # recurrentgemma-2b's rings: window 2048 + chunk 256; contexts past one wrap
+    rg_ctx = (3000, 2400, 1500, 256, 3900, 700, 0, 2304)
+    for sq in (1, 256):
+        for int8 in (False, True):
+            s.ring_phase("recurrentgemma-2b", sq, 10, 1, 256, 2048, 2304, int8, rg_ctx)
+    s.ring_phase("llama2-7b-shaped", 256, 32, 32, 128, 0, 2048, False,
+                 (1500, 600, 2048, 256, 0, 1000, 64, 1800))
+    for steps in (1, 256):
+        s.rglru_phase(steps)
     print(f"[phases] kernel phases took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    cfg = serve_config_of(get_config("llama2-7b"))
-    t0 = time.perf_counter()
-    params = init_lm(cfg, seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    print(f"[init] llama2-7b serving config (32 layers, int4 g128 + TT blocks 13-31, bf16) "
-          f"random params in {time.perf_counter() - t0:.1f} s; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
-    prompts = [[int(t) for t in s.rng.integers(0, cfg.vocab_size, n)]
-               for n in s.rng.integers(64, 1537, 8)]
-    s.logits_check(cfg, params, prompts)
-    launches = s.serve(cfg, params, card, prompts)
-    s.profile_decode(cfg, params, card)
+    launches = {}
+    for arch, max_len, lo, hi in (("llama2-7b", 2048, 64, 1537),
+                                  ("recurrentgemma-2b", 4096, 64, 3073)):
+        cfg = serve_config_of(get_config(arch))
+        model = griffin if cfg.family == "griffin" else transformer
+        t0 = time.perf_counter()
+        params = model.init_lm(cfg, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        print(f"[init] {arch} serving config ({cfg.n_layers} layers, int4 g128 + TT, bf16) "
+              f"random params in {time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+        lens = s.rng.integers(lo, hi, 8)
+        if cfg.window and lens.max() <= cfg.window + 256:  # one prompt wraps its ring
+            lens[int(lens.argmax())] = s.rng.integers(cfg.window + 257, hi)
+        prompts = [[int(t) for t in s.rng.integers(0, cfg.vocab_size, n)] for n in lens]
+        s.logits_check(cfg, params, prompts, max_len, every_position=cfg.vocab_size <= 65536)
+        torch.cuda.reset_peak_memory_stats()
+        path = s.serve(cfg, params, card, prompts, max_len)
+        launches.update({k: path[k] for k in PATH_KERNELS[arch] if k not in launches})
+        launches[arch] = path
+        s.profile(cfg, params, card, max_len, with_chunk=cfg.family == "griffin")
+        del params
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        ph = s.phases[name]
-        main = ph[0]  # the first phase of each kernel is its decode / main-path shape
+        main = s.phases[name][0]  # the first phase of each kernel is its decode shape
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": main["max_abs_err"],
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                        "library_ms": main["library_ms"], "shape": main["label"]})
+                        "library_ms": main["library_ms"], "shape": main["label"],
+                        "launches_by_path": {arch: launches[arch][name]
+                                             for arch in PATH_KERNELS}})
     if s.failures:
         print("FAILED: " + "; ".join(s.failures), flush=True)
         return 1

@@ -1,10 +1,11 @@
-"""Architecture registry: the dense configs the port serves so far."""
+"""Architecture registry: the configs the port serves so far."""
 from importlib import import_module
 
 _MODULES = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "chatglm3-6b": "chatglm3_6b",
     "llama2-7b": "llama2_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ALL_ARCHS = tuple(_MODULES)

@@ -1,9 +1,11 @@
 """Param bridge from the JAX package's trees to the port's params.
 
 ``params_from_jax`` takes the tree ``repro.models.transformer.init_lm``
-builds, with every leaf already a numpy array (e.g. after
-``jax.device_get``), and returns the port's params on ``device``: each
-segment's stacked leading layer axis becomes a list of per-layer dicts.
+(dense; the paged and ring backends share it) or
+``repro.models.griffin.init_lm`` builds, with every leaf already a numpy
+array (e.g. after ``jax.device_get``), and returns the port's params on
+``device``: each stacked leading layer axis (dense segments, griffin's
+pattern groups) becomes a list of per-layer (per-group) dicts.
 numpy holds bf16 leaves as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects, so they cross as their uint16 bit patterns and are viewed back as
 ``torch.bfloat16``.  Nothing here imports JAX.
@@ -17,6 +19,7 @@ import torch
 
 from ._device import resolve_device
 from .config import ModelConfig
+from .models.griffin import pattern_plan
 from .models.transformer import segment_plan
 
 
@@ -39,6 +42,14 @@ def _map(tree, fn):
 def params_from_jax(tree: dict[str, Any], cfg: ModelConfig, *, device=None) -> dict[str, Any]:
     """Numpy-leaved JAX param tree -> the port's params on ``device``."""
     device = resolve_device(device)
+    if cfg.family == "griffin":
+        n_groups = pattern_plan(cfg)[0]
+        out = {k: _map(v, lambda a: _tensor(a, device))
+               for k, v in tree.items() if k != "groups"}
+        if n_groups:
+            out["groups"] = [_map(tree["groups"], lambda a, i=i: _tensor(np.asarray(a)[i], device))
+                             for i in range(n_groups)]
+        return out
     plan = segment_plan(cfg)
     if len(tree["segments"]) != len(plan):
         raise ValueError(f"tree has {len(tree['segments'])} segments, cfg plans {len(plan)}")

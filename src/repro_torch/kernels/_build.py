@@ -33,6 +33,8 @@ SIGNATURES = {
     "rt_int4_matmul": [P] * 7 + [I] * 5 + [P],
     "rt_paged_decode_attention": [P] * 8 + [I] * 7 + [F, I, I, P],
     "rt_paged_prefill_attention": [P] * 8 + [I] * 8 + [F, I, I, P],
+    "rt_ring_prefill_attention": [P] * 8 + [I] * 7 + [F, I, I, P],
+    "rt_rglru_scan": [P] * 6 + [I] * 4 + [P],
 }
 
 _LIB = None

@@ -21,6 +21,7 @@ import torch
 from . import int4_matmul as _int4
 from . import paged_attention as _paged
 from . import prefill_attention as _prefill
+from . import scan_rglru as _rglru
 from . import tt_linear as _tt
 from .epilogue import apply_epilogue
 
@@ -72,10 +73,44 @@ def paged_attention(q, cache, block_tables, qpos, *, sm_scale=None):
     return _paged.paged_attention(q, cache, block_tables, qpos, sm_scale=sm_scale)
 
 
-def prefill_attention(q, qpos, *, cache, block_tables, window: int = 0, sm_scale=None):
-    """Chunked-prefill attention over the paged pool, q (B, Sq, H, Dh),
-    qpos (B, Sq) (-1 = padding row -> 0).  The ring layout is not ported."""
-    kw = dict(cache=cache, block_tables=block_tables, window=window, sm_scale=sm_scale)
+def prefill_attention(q, qpos, *, cache=None, block_tables=None, k=None, v=None,
+                      kpos=None, window: int = 0, sm_scale=None, k_scale=None,
+                      v_scale=None):
+    """Chunked-prefill attention, q (B, Sq, H, Dh), qpos (B, Sq) (-1 =
+    padding row -> 0), over exactly one layout: the paged pool (``cache`` +
+    ``block_tables``) or per-slot rings (``k``/``v`` + ``kpos``, -1 = empty
+    entry; int8 rings with ``k_scale``/``v_scale`` (B, WR, Hkv)).  The ring
+    layout also serves ring decode (Sq = 1)."""
+    paged = cache is not None or block_tables is not None
+    ring = k is not None or v is not None or kpos is not None
+    if paged == ring:
+        raise ValueError("prefill_attention takes exactly one layout: "
+                         "cache+block_tables (paged) or k/v/kpos (ring)")
+    if paged and (cache is None or block_tables is None):
+        raise ValueError("paged layout needs both cache and block_tables")
+    if ring and (k is None or v is None or kpos is None):
+        raise ValueError("ring layout needs all of k, v and kpos")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    if k_scale is not None and not ring:
+        raise ValueError("k_scale/v_scale are ring-layout only")
+    if paged:
+        kw = dict(cache=cache, block_tables=block_tables, window=window, sm_scale=sm_scale)
+        if _plain.get():
+            return _prefill.prefill_attention_ref(q, qpos, **kw)
+        return _prefill.prefill_attention(q, qpos, **kw)
+    kw = dict(k=k, v=v, kpos=kpos, window=window, sm_scale=sm_scale, k_scale=k_scale,
+              v_scale=v_scale)
     if _plain.get():
-        return _prefill.prefill_attention_ref(q, qpos, **kw)
-    return _prefill.prefill_attention(q, qpos, **kw)
+        return _prefill.ring_attention_ref(q, qpos, **kw)
+    return _prefill.ring_attention(q, qpos, **kw)
+
+
+def rglru_scan(log_a, gx, h0, pos=None, *, scan_dtype=None):
+    """RG-LRU recurrence: log_a/gx (B, S, W), h0 (B, W) f32, pos (B, S)
+    (-1 = padding step: the state passes through bitwise).  Returns
+    (h (B, S, W) scan_dtype, h_last (B, W) f32); S == 1 is the decode step.
+    Both versions check the shapes and raise ``ValueError``."""
+    if _plain.get():
+        return _rglru.rglru_scan_ref(log_a, gx, h0, pos, scan_dtype=scan_dtype)
+    return _rglru.rglru_scan(log_a, gx, h0, pos, scan_dtype=scan_dtype)

@@ -3,8 +3,9 @@
 ``paged_attention`` runs the CUDA kernel (``csrc/paged_attention.cu``) on a
 CUDA tensor and the plain gather + masked-softmax version on a CPU tensor.
 Replaces ``repro/kernels/paged_attention.py::paged_attention_pallas``.  The
-general plain version ``paged_attention_plain`` (any Sq, optional window) is
-also the plain version of the chunked-prefill kernel.
+masked softmax over explicit key positions (``ring_attention_plain``) is the
+plain version of every attention kernel: ``paged_attention_plain`` (any Sq,
+optional window) runs it over the gathered pool.
 """
 from __future__ import annotations
 
@@ -33,23 +34,30 @@ def gather_paged_kv(cache: dict, block_tables: torch.Tensor):
     return k.reshape(b, w * bs, hkv, dh), v.reshape(b, w * bs, hkv, dh)
 
 
-def paged_attention_plain(q, cache: dict, block_tables, qpos, *, sm_scale=None,
-                          window: int = 0) -> torch.Tensor:
-    """Causal attention of (B, Sq, H, Dh) queries at positions qpos (B, Sq)
-    (``-1`` = padding, zero output) against the paged pool; mirrors
-    ``repro.kernels.ref.paged_attention``."""
+def ring_attention_plain(q, k, v, qpos, kpos, *, window: int = 0, sm_scale=None,
+                         k_scale=None, v_scale=None) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention of (B, Sq, H, Dh) queries
+    at qpos (B, Sq) against keys k, v (B, K, Hkv, Dh) at positions kpos
+    (B, K) in any order; ``-1`` marks a padding query (zero output) or an
+    empty key (never attended).  int8 keys carry (B, K, Hkv) f32
+    ``k_scale``/``v_scale``.  Mirrors ``repro.kernels.ref.ring_attention``;
+    the plain version of the ring layout and, over the gathered pool, of the
+    paged kernels."""
     b, sq, h, dh = q.shape
-    hkv = cache["k"].shape[2]
+    hkv = k.shape[2]
     g = h // hkv
     sm_scale = sm_scale or (1.0 / math.sqrt(dh))
-    k, v = gather_paged_kv(cache, block_tables)
+    k, v = k.to(torch.float32), v.to(torch.float32)
+    if k_scale is not None:
+        k = k * k_scale[..., None]
+        v = v * v_scale[..., None]
     qh = q.reshape(b, sq, hkv, g, dh).to(torch.float32)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k) * sm_scale
-    kpos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
-    qpos = qpos.to(torch.int32)
-    mask = (kpos[None, None, :] <= qpos[:, :, None]) & (qpos >= 0)[:, :, None]
+    qpos, kpos = qpos.to(torch.int32), kpos.to(torch.int32)
+    mask = (kpos[:, None, :] >= 0) & (qpos[:, :, None] >= 0) \
+        & (kpos[:, None, :] <= qpos[:, :, None])
     if window > 0:
-        mask &= qpos[:, :, None] - kpos[None, None, :] < window
+        mask &= qpos[:, :, None] - kpos[:, None, :] < window
     maskb = mask[:, None, None]
     s = torch.where(maskb, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
@@ -58,6 +66,18 @@ def paged_attention_plain(q, cache: dict, block_tables, qpos, *, sm_scale=None,
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v)
     o = torch.where(l > 0, o / torch.clamp(l, min=1e-30), torch.zeros_like(o))
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+
+
+def paged_attention_plain(q, cache: dict, block_tables, qpos, *, sm_scale=None,
+                          window: int = 0) -> torch.Tensor:
+    """Causal attention of (B, Sq, H, Dh) queries at positions qpos (B, Sq)
+    (``-1`` = padding, zero output) against the paged pool; mirrors
+    ``repro.kernels.ref.paged_attention``: the gathered index i holds the
+    sequence's position i."""
+    k, v = gather_paged_kv(cache, block_tables)
+    kpos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+    return ring_attention_plain(q, k, v, qpos, kpos.expand(k.shape[0], -1),
+                                window=window, sm_scale=sm_scale)
 
 
 def check_paged_args(q, cache, block_tables, qpos, sq: int):

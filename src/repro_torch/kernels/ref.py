@@ -8,3 +8,5 @@ from .int4_matmul import int4_matmul_ref as int4_matmul  # noqa: F401
 from .paged_attention import gather_paged_kv  # noqa: F401
 from .paged_attention import paged_attention_plain as paged_attention  # noqa: F401
 from .tt_linear import tt_linear_ref as tt_linear_bn_res  # noqa: F401
+from .prefill_attention import ring_attention_plain as ring_attention  # noqa: F401
+from .scan_rglru import rglru_scan_plain as rglru_scan  # noqa: F401

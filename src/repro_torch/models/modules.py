@@ -177,6 +177,63 @@ def paged_kv_update(cache: dict, k_new, v_new, index) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Per-slot ring write (ring and griffin serving; layout in transformer.py)
+# ---------------------------------------------------------------------------
+def ring_write_index(positions, wr: int):
+    """Where one call's (B, S) positions land in (B, WR) rings: entry
+    ``pos % WR`` for a real position.  A padding position (-1) must drop its
+    write; it is sent instead to a spare entry of its row that no real write
+    of this call touches, and rewrites that entry's current contents there, so
+    the update needs no host sync and no data-dependent shapes.  Computed once
+    per step and shared by every layer's :func:`ring_kv_update`.  Returns
+    (rows (B, S), entries (B, S), real (B, S) bool, spare (B,))."""
+    b, s = positions.shape
+    if s > wr:
+        raise ValueError(f"a call writes {s} positions into rings of {wr} entries")
+    positions = positions.to(torch.int64)
+    real = positions >= 0
+    entry = torch.remainder(positions.clamp(min=0), wr)
+    taken = torch.zeros((b, wr + 1), dtype=torch.uint8, device=positions.device)
+    taken.scatter_(1, torch.where(real, entry, wr), 1)
+    spare = taken[:, :wr].argmin(dim=1)  # first entry this call leaves alone
+    rows = torch.arange(b, device=positions.device)[:, None].expand(b, s)
+    return rows, torch.where(real, entry, spare[:, None]), real, spare
+
+
+def ring_kv_update(cache: dict, k_new, v_new, positions, index=None) -> dict:
+    """Write one call's K/V (B, S, Hkv, Dh) into per-slot rings at
+    ``pos % WR``, **in place**; a write at position -1 is dropped.
+
+    cache: ``{"k","v": (B, WR, Hkv, Dh), "pos": (B, WR) int32}`` (-1 = empty
+    entry), plus ``k_scale``/``v_scale`` (B, WR, Hkv) f32 for int8 rings: each
+    written entry gets a per-(entry, head) amax/127 scale, as
+    ``repro.models.modules.ring_kv_update``.  ``index`` is
+    :func:`ring_write_index`'s result for ``positions`` when the caller
+    shares it across layers.  Returns ``cache``.
+    """
+    if index is None:
+        index = ring_write_index(positions, cache["k"].shape[1])
+    rows, entries, real, spare = index
+    b = rows.shape[0]
+
+    def put(buf, x):
+        keep = buf[torch.arange(b, device=buf.device), spare][:, None]  # (B, 1, ...)
+        m = real.reshape(real.shape + (1,) * (x.ndim - 2))
+        buf[rows, entries] = torch.where(m, x.to(buf.dtype), keep)
+
+    put(cache["pos"], positions.to(torch.int32))
+    for nm, x in (("k", k_new), ("v", v_new)):
+        if nm + "_scale" in cache:
+            x32 = x.to(torch.float32)
+            sc = x32.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+            put(cache[nm], torch.round(x32 / sc[..., None]).to(torch.int8))
+            put(cache[nm + "_scale"], sc)
+        else:
+            put(cache[nm], x)
+    return cache
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 def mlp_specs(cfg: ModelConfig, ttd_block: bool) -> dict[str, LinearSpec]:
@@ -226,7 +283,16 @@ def embed_lookup(params, ids, compute_dtype, cfg: ModelConfig | None = None):
 
 
 def unembed(x, table, compute_dtype):
-    """x: (..., D), table (V, D) -> logits (..., V) f32.  Operands are rounded
-    to the compute dtype, then multiplied in f32 (an f32-accumulating dot)."""
-    xs = x.to(compute_dtype).to(torch.float32)
-    return torch.matmul(xs, table.to(compute_dtype).to(torch.float32).T)
+    """x: (..., D), table (V, D) -> logits (..., V) f32: the operands rounded to
+    the compute dtype, multiplied with f32 accumulation (XLA's f32-accumulating
+    dot in the JAX package).  On the card that is one ``torch.mm`` with an f32
+    output (``aten::mm.dtype``), so no f32 copy of the table is made (the
+    serving path's head is bf16: 1.3 GB for recurrentgemma's tied 256000 x
+    2560 table, whose f32 copy would be 2.6 GB per call).  The CPU has no such
+    overload and upcasts both operands."""
+    xs = x.to(compute_dtype)
+    t = table.to(compute_dtype)
+    if xs.is_cuda and compute_dtype != torch.float32:
+        y = torch.mm(xs.reshape(-1, xs.shape[-1]), t.T, out_dtype=torch.float32)
+        return y.reshape(*xs.shape[:-1], t.shape[0])
+    return torch.matmul(xs.to(torch.float32), t.to(torch.float32).T)

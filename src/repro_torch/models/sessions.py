@@ -1,10 +1,17 @@
-"""Typed serving session (counterpart of ``repro.models.sessions``).
+"""Typed serving sessions (counterpart of ``repro.models.sessions``).
 
-Only the paged K/V backend of the dense family is ported: shared block pools
-plus per-slot block tables.  Every other family or backend raises the
-reference's ``NotImplementedError``.  ``tokens``/``positions`` follow the
-reference's convention: rows are decode slots, positions are per-sequence
-absolute indices, ``-1`` marks padding/inactive rows.
+Ported: the dense family's paged backend (shared block pools plus per-slot
+block tables) and ring backend (per-slot K/V rings), and griffin's recurrent
+backend (RG-LRU state, conv tails and windowed attention rings).  Every
+other family or backend raises the reference's ``NotImplementedError``.
+``tokens``/``positions`` follow the reference's convention: rows are decode
+slots, positions are per-sequence absolute indices, ``-1`` marks
+padding/inactive rows.
+
+A session declares what the engine needs to know about its state:
+``uses_blocks`` (block-pool capacity accounting applies) and ``slot_axis``,
+the axis of every state leaf that indexes slots (``None`` when no leaf has
+one: paged pools are shared and block ownership isolates sequences).
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ import torch
 
 from .._device import resolve_device
 from ..config import ModelConfig
-from . import transformer
+from . import griffin, transformer
 
 CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int8": torch.int8}
@@ -53,21 +60,39 @@ class SessionSpec:
         return blocks_for(self.max_len, self.block_size)
 
 
-class PagedKVSession:
-    """Shared K/V block pools + block tables (dense, full attention).  The
-    pools in ``state["kv"]`` are updated in place by every step."""
+class InferenceSession:
+    """Base session: cfg + spec + device and the uniform step surface
+    ``init_state`` / ``prefill_chunk`` / ``decode_step``.  States are updated
+    in place by every step."""
+    backend = "?"
+    uses_blocks = False
+    slot_axis: int | None = 0
 
     def __init__(self, cfg: ModelConfig, spec: SessionSpec, device=None):
         self.cfg = cfg
         self.spec = spec
         self.device = resolve_device(device)
 
+    def _dtype(self):
+        return CACHE_DTYPES[canonical_cache_dtype(self.spec.cache_dtype)]
+
+    def with_tables(self, state, block_tables):
+        """Swap host-packed block tables into the state (block backends)."""
+        return state
+
+
+class PagedKVSession(InferenceSession):
+    """Shared K/V block pools + block tables (dense, full attention)."""
+    backend = "paged"
+    uses_blocks = True
+    slot_axis = None
+
     def init_state(self):
         sp = self.spec
         return {
             "kv": transformer.init_paged_cache(
-                self.cfg, sp.resolved_num_blocks(), sp.block_size,
-                CACHE_DTYPES[canonical_cache_dtype(sp.cache_dtype)], device=self.device),
+                self.cfg, sp.resolved_num_blocks(), sp.block_size, self._dtype(),
+                device=self.device),
             "block_tables": torch.zeros((sp.slots, sp.table_width()), dtype=torch.int32,
                                         device=self.device),
         }
@@ -92,6 +117,45 @@ class PagedKVSession:
         return dict(state, block_tables=bt)
 
 
+class RingKVSession(InferenceSession):
+    """Per-slot K/V rings (dense; the sliding-window backend)."""
+    backend = "ring"
+
+    def init_state(self):
+        sp = self.spec
+        return {"kv": transformer.init_ring_cache(self.cfg, sp.slots, sp.max_len,
+                                                  sp.prefill_chunk, self._dtype(),
+                                                  device=self.device)}
+
+    def prefill_chunk(self, params, state, tokens, positions, logit_cols=None):
+        logits, kv = transformer.prefill_ring_chunk(params, self.cfg, state["kv"], tokens,
+                                                    positions, logit_cols)
+        return logits, {"kv": kv}
+
+    def decode_step(self, params, state, tokens, positions):
+        logits, kv = transformer.decode_step_ring(params, self.cfg, state["kv"], tokens,
+                                                  positions)
+        return logits, {"kv": kv}
+
+
+class GriffinSession(InferenceSession):
+    """Constant-size recurrent state: RG-LRU h + conv tails + windowed
+    attention rings (griffin / recurrentgemma)."""
+    backend = "recurrent"
+
+    def init_state(self):
+        sp = self.spec
+        return griffin.init_session_state(self.cfg, sp.slots, sp.max_len, sp.prefill_chunk,
+                                          self._dtype(), device=self.device)
+
+    def prefill_chunk(self, params, state, tokens, positions, logit_cols=None):
+        return griffin.prefill_session_chunk(params, self.cfg, state, tokens, positions,
+                                             logit_cols)
+
+    def decode_step(self, params, state, tokens, positions):
+        return griffin.decode_session_step(params, self.cfg, state, tokens, positions)
+
+
 FAMILY_BACKENDS: dict[str, tuple[str, ...]] = {
     "dense": ("paged", "ring"),
     "moe": ("paged", "ring"),
@@ -111,8 +175,15 @@ def default_backend(cfg: ModelConfig) -> str:
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
+_SESSION_TYPES: dict[tuple[str, str], type[InferenceSession]] = {
+    ("dense", "paged"): PagedKVSession,
+    ("dense", "ring"): RingKVSession,
+    ("griffin", "recurrent"): GriffinSession,
+}
+
+
 def make_session(cfg: ModelConfig, spec: SessionSpec | None = None, *,
-                 backend: str | None = None, device=None, **spec_kw) -> PagedKVSession:
+                 backend: str | None = None, device=None, **spec_kw) -> InferenceSession:
     """Build the typed session for a config; unsupported or not-yet-ported
     combinations raise ``NotImplementedError`` naming the family."""
     if spec is None:
@@ -134,9 +205,10 @@ def make_session(cfg: ModelConfig, spec: SessionSpec | None = None, *,
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) has pos_type "
             f"{cfg.pos_type!r}; the {backend!r} backend supports rope|none")
-    if (cfg.family, backend) != ("dense", "paged"):
+    if (cfg.family, backend) not in _SESSION_TYPES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) with the {backend!r} backend is "
-            "not ported to repro_torch yet; ported: dense/paged")
+            "not ported to repro_torch yet; ported: "
+            + ", ".join(f"{f}/{b}" for f, b in _SESSION_TYPES))
     canonical_cache_dtype(spec.cache_dtype)
-    return PagedKVSession(cfg, spec, device=device)
+    return _SESSION_TYPES[cfg.family, backend](cfg, spec, device=device)

@@ -1,10 +1,10 @@
-"""Decoder-only transformer, paged serving path (counterpart of the dense
-family in ``repro.models.transformer``).
+"""Decoder-only transformer, paged and ring serving paths (counterpart of
+the dense family in ``repro.models.transformer``).
 
 Layers are a per-layer list (no scan).  ``params["segments"]`` mirrors the
 JAX tree's segments — blocks ``[0, first_tt_block)`` quant-only, the rest
 TT-compressed (paper: 19 of 32 llama2 blocks) — each a list of layer dicts.
-The paged K/V pools are updated in place.
+The paged K/V pools and the per-slot rings are updated in place.
 """
 from __future__ import annotations
 
@@ -33,6 +33,8 @@ from .modules import (
     mlp_specs,
     paged_kv_update,
     paged_write_index,
+    ring_kv_update,
+    ring_write_index,
     rope_angles,
     unembed,
 )
@@ -51,10 +53,12 @@ class BlockSpecs:
 
 
 def make_block_specs(cfg: ModelConfig, ttd_block: bool) -> BlockSpecs:
-    if cfg.family != "dense" or cfg.norm_type != "rmsnorm" or cfg.act not in ("swiglu", "geglu"):
+    if cfg.family not in ("dense", "griffin") or cfg.norm_type != "rmsnorm" \
+            or cfg.act not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / norm {cfg.norm_type!r} / act {cfg.act!r} "
-            "is not ported yet (dense, rmsnorm, swiglu|geglu are)")
+            "is not ported yet (dense and griffin's attention blocks, rmsnorm, "
+            "swiglu|geglu are)")
     attn = (
         ("wq", linear_spec(cfg, "attn_q", cfg.d_model, cfg.q_dim, bias=cfg.qkv_bias, ttd_block=ttd_block)),
         ("wk", linear_spec(cfg, "attn_k", cfg.d_model, cfg.kv_dim, bias=cfg.qkv_bias, ttd_block=ttd_block)),
@@ -232,3 +236,100 @@ def prefill_paged_chunk(params, cfg: ModelConfig, caches, tokens, block_tables, 
     if logit_cols is not None:
         x = x[torch.arange(x.shape[0], device=x.device), logit_cols]
     return logits_from_hidden(params, cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# Ring-cache serving path: per-slot K/V rings of ``window + chunk`` entries
+# (the whole ``max_len`` for full attention) with per-entry positions, the
+# constant-footprint backend for sliding-window attention.  Same position
+# conventions as the paged path.
+# ---------------------------------------------------------------------------
+def ring_width(cfg: ModelConfig, max_len: int, chunk: int) -> int:
+    """Per-slot ring entries: the visible window plus the widest same-call
+    write (so a chunk write never evicts a key still visible to its own
+    earliest query); full attention keeps the whole ``max_len``."""
+    if cfg.window:
+        return min(cfg.window, max_len) + chunk
+    return max_len
+
+
+def new_ring(cfg: ModelConfig, batch: int, wr: int, cache_dtype, device) -> dict:
+    """One layer's empty rings: k/v (B, WR, Hkv, Dh), pos (B, WR) = -1, and
+    for int8 rings per-(entry, head) f32 scale tables."""
+    shape = (batch, wr, cfg.n_kv_heads, cfg.head_dim)
+    c = {"k": torch.zeros(shape, dtype=cache_dtype, device=device),
+         "v": torch.zeros(shape, dtype=cache_dtype, device=device),
+         "pos": torch.full((batch, wr), -1, dtype=torch.int32, device=device)}
+    if cache_dtype == torch.int8:
+        c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return c
+
+
+def init_ring_cache(cfg: ModelConfig, batch: int, max_len: int, chunk: int,
+                    cache_dtype=torch.bfloat16, *, device=None):
+    """Per-segment lists of per-layer rings (see :func:`new_ring`)."""
+    device = resolve_device(device)
+    wr = ring_width(cfg, max_len, chunk)
+    return [[new_ring(cfg, batch, wr, cache_dtype, device) for _ in range(n)]
+            for n, _ in segment_plan(cfg)]
+
+
+def attn_ring(params, specs, cfg: ModelConfig, x, rope_cs, cache, positions,
+              compute_dtype, residual=None, index=None):
+    """Write-then-attend against one layer's rings: prefill (S > 1) and
+    ragged decode (S == 1) both run the ring attention kernel, with the
+    ring's ``pos`` as its ``kpos``; the skip connection fuses into the output
+    projection's epilogue.  ``index`` is the step's ``ring_write_index``."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, specs, cfg, x, rope_cs, compute_dtype)
+    cache = ring_kv_update(cache, k, v, positions, index)
+    o = dispatch.prefill_attention(q.contiguous(), positions, k=cache["k"], v=cache["v"],
+                                   kpos=cache["pos"], window=cfg.window,
+                                   k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    o = apply_linear(params["attn"]["wo"], o.to(compute_dtype).reshape(b, s, cfg.q_dim),
+                     specs.attn_d()["wo"], compute_dtype, residual=residual)
+    return o, cache
+
+
+def _ring_stack(params, cfg: ModelConfig, caches, x, rope_cs, positions, compute_dtype):
+    index = ring_write_index(positions, caches[0][0]["k"].shape[1])
+    for seg_params, seg_cache, (_, ttd_on) in zip(params["segments"], caches,
+                                                  segment_plan(cfg)):
+        specs = make_block_specs(cfg, ttd_on)
+        for layer_params, layer_cache in zip(seg_params, seg_cache):
+            h = apply_norm(layer_params["ln1"], x)
+            a, _ = attn_ring(layer_params, specs, cfg, h, rope_cs, layer_cache, positions,
+                             compute_dtype, residual=x, index=index)
+            x = a.to(x.dtype)
+            h = apply_norm(layer_params["ln2"], x)
+            x = apply_mlp(layer_params["mlp"], h, specs.mlp_d(), cfg, compute_dtype,
+                          residual=x).to(x.dtype)
+    return apply_norm(params["final_norm"], x), caches
+
+
+def prefill_ring_chunk(params, cfg: ModelConfig, caches, tokens, positions,
+                       logit_cols=None):
+    """One chunk of batched prefill into per-slot rings: tokens (B, C),
+    positions (B, C) (``-1`` = padding).  Returns logits (B, C, V) f32, or
+    (B, V) at column ``logit_cols[b]`` of each row when given; the rings are
+    updated in place."""
+    compute_dtype = dt(cfg.compute_dtype)
+    x = embed_lookup(params["embed"], tokens, compute_dtype, cfg)
+    positions = positions.to(torch.int32).contiguous()
+    rope_cs = _paged_rope(cfg, positions)
+    x, caches = _ring_stack(params, cfg, caches, x, rope_cs, positions, compute_dtype)
+    if logit_cols is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), logit_cols]
+    return logits_from_hidden(params, cfg, x), caches
+
+
+def decode_step_ring(params, cfg: ModelConfig, caches, tokens, positions):
+    """One ragged decode tick against the rings: tokens (B, 1), positions (B,)
+    (``-1`` = inactive row).  Returns logits (B, V) f32."""
+    compute_dtype = dt(cfg.compute_dtype)
+    x = embed_lookup(params["embed"], tokens, compute_dtype, cfg)
+    pos2 = positions[:, None].to(torch.int32).contiguous()
+    rope_cs = _paged_rope(cfg, pos2)
+    x, caches = _ring_stack(params, cfg, caches, x, rope_cs, pos2, compute_dtype)
+    return logits_from_hidden(params, cfg, x)[:, 0], caches

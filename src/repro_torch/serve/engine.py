@@ -1,16 +1,19 @@
-"""Continuous-batching serving engine, paged path (counterpart of
-``repro.serve.engine``).
+"""Continuous-batching serving engine over any ported session (counterpart
+of ``repro.serve.engine``).
 
 Requests join after batched chunked prefill; every decode tick advances all
-active slots one token through one ragged decode call; finished sequences
-free their blocks immediately.  The engine owns a
+active slots one token through one ragged decode call.  For block-pool
+backends (``session.uses_blocks``: paged) the engine owns a
 :class:`~repro_torch.serve.kv_cache.BlockManager`: admission is FCFS while
 free blocks cover the prompt plus one lookahead token, tables grow on demand
-each tick, and block exhaustion preempts the newest-admitted sequence back to
-the head of the queue (recompute-style: its emitted tokens are re-prefilled
-with the prompt on re-admission, so greedy outputs are unchanged).  Requests
-finish on eos, ``max_tokens`` or the ``max_len`` frontier.  Sampling is
-greedy, an argmax on the device.
+each tick, finished sequences free their blocks immediately, and block
+exhaustion preempts the newest-admitted sequence back to the head of the
+queue (recompute-style: its emitted tokens are re-prefilled with the prompt
+on re-admission, so greedy outputs are unchanged).  Backends without blocks
+(ring, recurrent) keep a constant-size state per slot: admission needs only
+a free slot, nothing is preempted, and a slot's state rows are reset before
+a new occupant prefills.  Requests finish on eos, ``max_tokens`` or the
+``max_len`` frontier.  Sampling is greedy, an argmax on the device.
 
 Not ported yet: cancellation, deadlines, EDF admission, observability and the
 async front-end's dispatch-ahead split.
@@ -48,8 +51,9 @@ class Request:
 
 
 class Engine:
-    """Continuous-batching scheduler over a paged session of ``cfg``;
-    ``device`` follows the package rule (the card unless ``"cpu"``)."""
+    """Continuous-batching scheduler over the session of ``cfg`` (``backend``
+    defaults to the family's); ``device`` follows the package rule (the card
+    unless ``"cpu"``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4, max_len: int = 512,
                  backend: str | None = None, block_size: int = 16,
@@ -67,7 +71,9 @@ class Engine:
         self.max_len = spec.max_len
         self.prefill_batch = max(1, prefill_batch)
         self.prefill_chunk = spec.prefill_chunk
-        self.manager = BlockManager(spec.resolved_num_blocks(), spec.block_size)
+        self.manager: BlockManager | None = None
+        if self.session.uses_blocks:
+            self.manager = BlockManager(spec.resolved_num_blocks(), spec.block_size)
         self.state = self.session.init_state()
         self.queue: list[Request] = []
         self.finished: list[Request] = []
@@ -86,11 +92,12 @@ class Engine:
         if len(prompt) + 1 > self.max_len:
             raise ValueError(f"prompt needs {len(prompt) + 1} positions "
                              f"> max_len {self.max_len}")
-        worst = min(len(prompt) + max_tokens, self.max_len)
-        need = blocks_for(worst, self.manager.block_size)
-        if need > self.manager.num_blocks - 1:
-            raise ValueError(f"request needs up to {need} blocks but the pool only "
-                             f"has {self.manager.num_blocks - 1}")
+        if self.manager is not None:  # servable alone: prompt + output fit the pool
+            worst = min(len(prompt) + max_tokens, self.max_len)
+            need = blocks_for(worst, self.manager.block_size)
+            if need > self.manager.num_blocks - 1:
+                raise ValueError(f"request needs up to {need} blocks but the pool only "
+                                 f"has {self.manager.num_blocks - 1}")
         req = Request(self._next_rid, list(prompt), max_tokens, eos,
                       t_submit=time.perf_counter())
         self._next_rid += 1
@@ -118,8 +125,8 @@ class Engine:
         return self.finished[start:]
 
     @property
-    def num_free_blocks(self) -> int:
-        return self.manager.num_free
+    def num_free_blocks(self) -> int | None:
+        return None if self.manager is None else self.manager.num_free
 
     # -- internals ------------------------------------------------------------
     def _emit(self, req: Request, tok: int) -> bool:
@@ -148,7 +155,28 @@ class Engine:
                 del self.queue[i]
                 return
 
+    def _reset_slots(self, slot_ids: list[int]) -> None:
+        """Clear the state rows of ``slot_ids`` before new occupants prefill
+        (a stale ring or recurrent state would otherwise leak into the next
+        sequence): int32 leaves (ring positions) to -1, the rest to 0, in
+        place along the session's ``slot_axis``."""
+        axis = self.session.slot_axis
+        if axis is None:
+            return
+        idx = torch.tensor(slot_ids, dtype=torch.int64, device=self.device)
+        stack = [self.state]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, dict):
+                stack.extend(node.values())
+            elif isinstance(node, (list, tuple)):
+                stack.extend(node)
+            else:
+                node.index_fill_(axis, idx, -1 if node.dtype == torch.int32 else 0)
+
     def _sync_tables(self, extra: dict[int, int] | None = None):
+        if self.manager is None:
+            return
         rids: list[int | None] = [r.rid if r is not None else None for r in self.slot_req]
         for s, rid in (extra or {}).items():
             rids[s] = rid
@@ -156,26 +184,28 @@ class Engine:
         self.state = self.session.with_tables(self.state, bt)
 
     def _admit(self):
-        """FCFS: take waiting requests while a slot is free and the pool
-        covers their tokens plus one lookahead token, then prefill them
-        together in fixed-width chunks."""
+        """FCFS: take waiting requests while a slot is free and (block
+        backends) the pool covers their tokens plus one lookahead token, then
+        prefill them together in fixed-width chunks."""
         free_slots = [s for s in range(self.slots) if self.slot_req[s] is None]
         batch: list[tuple[int, Request]] = []
         reserve = 0  # lookahead blocks promised to earlier batch members
         for req in list(self.queue):
             if not free_slots or len(batch) >= self.prefill_batch:
                 break
-            n_tok = len(self._seq_tokens(req))
-            bs = self.manager.block_size
-            need = blocks_for(n_tok + 1, bs)
-            if need + reserve > self.manager.num_free or \
-                    not self.manager.allocate(req.rid, n_tok):
-                break  # head-of-line blocks
-            reserve += need - blocks_for(n_tok, bs)
+            if self.manager is not None:
+                n_tok = len(self._seq_tokens(req))
+                bs = self.manager.block_size
+                need = blocks_for(n_tok + 1, bs)
+                if need + reserve > self.manager.num_free or \
+                        not self.manager.allocate(req.rid, n_tok):
+                    break  # head-of-line blocks
+                reserve += need - blocks_for(n_tok, bs)
             self._remove_from_queue(req)
             batch.append((free_slots.pop(0), req))
         if not batch:
             return
+        self._reset_slots([s for s, _ in batch])
         self._sync_tables(extra={s: req.rid for s, req in batch})
         prompts: list[list[int] | None] = [None] * self.slots
         for s, req in batch:
@@ -189,11 +219,15 @@ class Engine:
             if not req.t_first:
                 req.t_first = t_ready
             if self._emit(req, toks[s]):  # eos on the first token / max_tokens=1
-                self.manager.free(req.rid)
+                self._release(req)
                 continue
             self.slot_req[s] = req
             self.slot_pos[s] = len(prompts[s])
             self._admit_order.append(s)
+
+    def _release(self, req: Request) -> None:
+        if self.manager is not None:
+            self.manager.free(req.rid)
 
     def _preempt_newest(self) -> int | None:
         """Free the most recently admitted sequence back to the queue head."""
@@ -209,9 +243,10 @@ class Engine:
         return None
 
     def _decode_schedule(self) -> list[int]:
-        """Grow each active table to cover its incoming token (preempting the
-        newest on exhaustion); returns the active slots."""
-        for s in list(self._admit_order):
+        """Grow each active table to cover its incoming token (block backends,
+        preempting the newest on exhaustion); returns the active slots."""
+        growing = list(self._admit_order) if self.manager is not None else []
+        for s in growing:
             req = self.slot_req[s]
             if req is None:
                 continue
@@ -246,6 +281,6 @@ class Engine:
             if self._emit(req, toks[s]) or self.slot_pos[s] >= self.max_len - 1:
                 if not req.done:
                     self._finish(req, "max_len")
-                self.manager.free(req.rid)
+                self._release(req)
                 self.slot_req[s] = None
                 self._admit_order.remove(s)

@@ -140,3 +140,99 @@ def test_paged_attention_kernels(dev, sq, window, h, hkv, dh, qdt, kvdt):
                                     window=window)
     _close_rows(got, want, *((1e-4, 1e-4) if qdt == torch.float32 else (2.0 ** -6, 2.0 ** -6)))
     assert not got[qpos < 0].any()
+
+
+def _ring(b, wr, hkv, dh, dtype, dev, g, fill):
+    """Rings of ``wr`` entries holding positions ``fill[i]`` .. in ring order
+    (entry p % wr), so a row filled past ``wr`` has wrapped; -1 = empty."""
+    k = torch.randn(b, wr, hkv, dh, generator=g, device=dev)
+    v = torch.randn(b, wr, hkv, dh, generator=g, device=dev)
+    kpos = torch.full((b, wr), -1, dtype=torch.int32, device=dev)
+    for i, n in enumerate(fill):
+        p = torch.arange(max(0, n - wr), n, device=dev, dtype=torch.int32)
+        kpos[i, p % wr] = p
+    out = {"kpos": kpos}
+    if dtype != torch.int8:
+        out.update(k=k.to(dtype), v=v.to(dtype))
+        return out
+    for nm, x in (("k", k), ("v", v)):
+        sc = x.abs().amax(-1).clamp(min=1e-8) / 127.0
+        out[nm] = torch.round(x / sc[..., None]).to(torch.int8)
+        out[nm + "_scale"] = sc
+    return out
+
+
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16),
+                                      (torch.bfloat16, torch.int8)])
+@pytest.mark.parametrize("h,hkv,dh", [(10, 1, 256), (4, 4, 128), (8, 2, 64)])
+@pytest.mark.parametrize("sq,window", [(1, 0), (1, 48), (70, 0), (40, 48)])
+def test_ring_attention_kernel(dev, sq, window, h, hkv, dh, qdt, kvdt):
+    from repro_torch.kernels import prefill_attention as pf
+    g = torch.Generator(device=dev).manual_seed(sq * 100 + h + window)
+    b, wr = 4, 160
+    fill = [300, 37 + sq, wr + sq // 2, 0]  # wrapped, short, just wrapped, empty
+    ring = _ring(b, wr, hkv, dh, kvdt, dev, g, fill)
+    q = torch.randn(b, sq, h, dh, generator=g, device=dev).to(qdt)
+    start = torch.tensor([n - sq for n in fill], device=dev).clamp(min=0)
+    qpos = (start[:, None] + torch.arange(sq, device=dev)[None]).to(torch.int32)
+    qpos[3] = -1            # an idle slot
+    qpos[1, -1] = -1        # a padding row
+    kw = dict(k=ring["k"], v=ring["v"], kpos=ring["kpos"], window=window,
+              k_scale=ring.get("k_scale"), v_scale=ring.get("v_scale"))
+    n0 = pf.ring_launches
+    got = pf.ring_attention(q, qpos, **kw)
+    torch.cuda.synchronize()
+    assert pf.ring_launches == n0 + 1
+    want = pf.ring_attention_plain(q.float(), ring["k"], ring["v"], qpos, ring["kpos"],
+                                   window=window, k_scale=ring.get("k_scale"),
+                                   v_scale=ring.get("v_scale"))
+    _close_rows(got, want, *((1e-4, 1e-4) if qdt == torch.float32 else (2.0 ** -6, 2.0 ** -6)))
+    assert not got[qpos < 0].any()
+
+
+@pytest.mark.parametrize("scan_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w", [(8, 256, 2560), (3, 1, 200), (5, 37, 130)])
+def test_rglru_scan_kernel(dev, b, s, w, scan_dtype):
+    """Real steps within 1e-5 of max|want| (f32 state: expf/sqrtf against
+    torch's exp/sqrt, ~1 ulp a step; bf16 h adds its own rounding of 2^-8);
+    padding steps, idle rows and h_last of idle rows bitwise."""
+    from repro_torch.kernels import scan_rglru as k
+    g = torch.Generator(device=dev).manual_seed(b * s + w)
+    log_a = -8.0 * torch.rand(b, s, w, generator=g, device=dev) * 0.5
+    gx = torch.randn(b, s, w, generator=g, device=dev)
+    h0 = torch.randn(b, w, generator=g, device=dev)
+    pos = torch.arange(s, device=dev, dtype=torch.int32)[None].repeat(b, 1)
+    pos[1] = -1                              # an idle row
+    if s > 1:
+        pos[2, s // 3:] = -1                 # a short prompt, tail-padded
+    n0 = k.launches
+    h, h_last = k.rglru_scan(log_a, gx, h0, pos, scan_dtype=scan_dtype)
+    torch.cuda.synchronize()
+    assert k.launches == n0 + 1
+    h_want, last_want = k.rglru_scan_plain(log_a, gx, h0, pos, scan_dtype=scan_dtype)
+    assert h.dtype == scan_dtype and h_last.dtype == torch.float32
+    assert torch.equal(h_last[1], h0[1])  # idle row: h0 bitwise
+    assert torch.equal(h[1], h0[1].to(scan_dtype).expand(s, w))
+    real = pos >= 0
+    _close(h_last, last_want, 1e-5)
+    _close(h[real].float(), h_want[real].float(), 1e-5 if scan_dtype == torch.float32
+           else 2.0 ** -7)
+    if s > 1:  # the padded tail carries the last real state bitwise
+        n = s // 3
+        assert torch.equal(h[2, n:], h[2, n - 1:n].expand(s - n, w))
+        if scan_dtype == torch.float32:
+            assert torch.equal(h_last[2], h[2, n - 1])
+
+
+def test_unembed_logits_in_f32_from_bf16_operands(dev):
+    """The card's unembed (one bf16 GEMM with f32 output, no f32 copy of the
+    table) against the f32 product of the same bf16 values: summation order
+    only, 1e-5 of max|want|."""
+    from repro_torch.models.modules import unembed
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, 5, 2560, generator=g, device=dev).to(torch.bfloat16)
+    table = (torch.randn(4000, 2560, generator=g, device=dev) / 50).to(torch.bfloat16)
+    got = unembed(x, table, torch.bfloat16)
+    assert got.dtype == torch.float32 and got.shape == (2, 5, 4000)
+    _close(got, x.float() @ table.float().T, 1e-5)

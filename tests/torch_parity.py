@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro.models import griffin as jgriffin
 from repro.models import transformer as jtf
 
 
@@ -22,8 +23,10 @@ def _fill(name: str, in_cores: bool, shape, cfg, rng):
         return rng.uniform(0.5, 1.5, shape) / np.sqrt(21.0 * n_in)
     if name == "scale":  # norm gains
         return 1.0 + 0.1 * rng.standard_normal(shape)
-    if name in ("b", "bias"):
+    if name in ("b", "bias", "conv_b"):
         return 0.1 * rng.standard_normal(shape)
+    if name == "lambda":  # RG-LRU decay: a = exp(-8 softplus(lambda) r) in ~0.6-0.99,
+        return rng.uniform(-6.0, -2.0, shape)  # a memory of tens of steps
     if in_cores:  # per-stage variance ~constant: std = 1/sqrt(contraction rows)
         return rng.standard_normal(shape) / np.sqrt(shape[-2])
     fan = shape[-1] if name == "table" else shape[-2]  # table (V, D); w (…, in, out)
@@ -31,8 +34,10 @@ def _fill(name: str, in_cores: bool, shape, cfg, rng):
 
 
 def jax_params(cfg, seed=0):
-    """Seeded JAX param tree with ``init_lm``'s structure, shapes and dtypes."""
-    shapes = jax.eval_shape(partial(jtf.init_lm, cfg=cfg), jax.random.PRNGKey(0))
+    """Seeded JAX param tree with ``init_lm``'s structure, shapes and dtypes
+    (the dense transformer's or griffin's, by the config's family)."""
+    init = jgriffin.init_lm if cfg.family == "griffin" else jtf.init_lm
+    shapes = jax.eval_shape(partial(init, cfg=cfg), jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
     leaves, treedef = jax.tree_util.tree_flatten_with_path(shapes)
     out = []
