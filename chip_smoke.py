@@ -5,16 +5,19 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from ``src/repro_torch/csrc`` (first use),
+It builds the eight CUDA kernels from ``src/repro_torch/csrc`` (first use),
 then:
 
 1. kernel phases — each kernel against its plain PyTorch version at the
    serving paths' shapes, with its time, the plain version's time, one
    PyTorch library call's time as a yardstick where one exists, and the
    card's bound;
-2. for each of the two serving paths — llama2-7b (paged K/V) and
-   recurrentgemma-2b (griffin: RG-LRU state and windowed attention rings) at
-   full width and depth:
+2. for each of the four serving paths — llama2-7b (paged K/V),
+   recurrentgemma-2b (griffin: RG-LRU state and windowed attention rings),
+   llama2-7b-tt-embed (llama2-7b's paged path with its embedding table a
+   vocab-axis TT, on the same params with TT cores swapped in for the table)
+   and rwkv6-7b (wkv matrix state and token-shift tails) — at full width and
+   depth:
    a. a logits check at the serve phase's geometry — 8 slots prefilling the
       serve phase's 8 prompts in 256-token chunks, then 4 decode steps,
       through the kernels against the same steps through the plain versions
@@ -22,9 +25,9 @@ then:
    b. the serve phase — the continuous-batching ``Engine`` serving those 8
       requests (random weights from a seed), with every kernel's launch
       counter reset just before and read just after;
-   c. a profile of decode steps (and, for griffin, of one prefill chunk):
-      wall time against device kernel time (``torch.profiler``), the
-      device's busy share and the top kernels.
+   c. a profile of decode steps (and, for griffin and rwkv, of one prefill
+      chunk): wall time against device kernel time (``torch.profiler``), the
+      device's busy share, the top kernels and each hand kernel's time.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  It exits
@@ -34,6 +37,8 @@ package is missing, or when any phase fails.  It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -67,6 +72,8 @@ SOURCES = {
     "ring_attention": ("src/repro_torch/csrc/ring_attention.cu",
                        "src/repro/kernels/prefill_attention.py:118"),
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu", "src/repro/kernels/scan_rglru.py:87"),
+    "tt_embed": ("src/repro_torch/csrc/tt_embed.cu", "src/repro/kernels/tt_embed.py:79"),
+    "wkv_scan": ("src/repro_torch/csrc/wkv_scan.cu", "src/repro/kernels/scan_wkv.py:102"),
 }
 # kernel -> (wrapper module, its launch counter, its plain-on-CUDA counter)
 COUNTERS = {
@@ -76,11 +83,16 @@ COUNTERS = {
     "prefill_attention": ("prefill_attention", "launches", "plain_cuda_calls"),
     "ring_attention": ("prefill_attention", "ring_launches", "ring_plain_cuda_calls"),
     "rglru_scan": ("scan_rglru", "launches", "plain_cuda_calls"),
+    "tt_embed": ("tt_embed", "launches", "plain_cuda_calls"),
+    "wkv_scan": ("scan_wkv", "launches", "plain_cuda_calls"),
 }
 # the kernels each serving path must launch
 PATH_KERNELS = {
     "llama2-7b": ("tt_linear", "int4_matmul", "paged_attention", "prefill_attention"),
     "recurrentgemma-2b": ("tt_linear", "int4_matmul", "ring_attention", "rglru_scan"),
+    "llama2-7b-tt-embed": ("tt_embed", "tt_linear", "int4_matmul", "paged_attention",
+                           "prefill_attention"),
+    "rwkv6-7b": ("tt_linear", "int4_matmul", "wkv_scan"),
 }
 
 
@@ -138,26 +150,28 @@ class Smoke:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    def row_ratio(self, got, want) -> float:
-        """Worst |got - want| / (ATTN_ATOL * row max|want| + ATTN_RTOL * |want|)
-        over all elements, rows along the last axis; <= 1 passes."""
+    def row_ratio(self, got, want, atol=ATTN_ATOL, rtol=ATTN_RTOL) -> float:
+        """Worst |got - want| / (atol * row max|want| + rtol * |want|) over
+        all elements, rows along the last axis; <= 1 passes."""
         torch = self.torch
         got, want = got.float(), want.float()
         d = (got - want).abs()
-        lim = ATTN_ATOL * want.abs().amax(-1, keepdim=True) + ATTN_RTOL * want.abs()
+        lim = atol * want.abs().amax(-1, keepdim=True) + rtol * want.abs()
         ratio = torch.where(d == 0, torch.zeros_like(d), d / lim)  # lim 0, d > 0 -> inf
         return ratio.max().item()
 
     def record(self, kernel, label, got, want, rel_tol, why, ms, plain_ms, lib_ms, lib_what,
                nbytes, flops, peak_flops=BF16_FLOPS):
-        """``rel_tol`` is a fraction of max|want| over the whole output, or
-        ``"rows"`` for the element-wise attention criterion above."""
+        """``rel_tol`` is a fraction of max|want| over the whole output,
+        ``"rows"`` for the element-wise attention criterion above, or
+        ``("rows", atol, rtol)`` for the same criterion with other constants."""
         err = (got.float() - want.float()).abs().max().item()
-        if rel_tol == "rows":
-            ratio = self.row_ratio(got, want)
+        if rel_tol == "rows" or isinstance(rel_tol, tuple):
+            atol, rtol = (ATTN_ATOL, ATTN_RTOL) if rel_tol == "rows" else rel_tol[1:]
+            ratio = self.row_ratio(got, want, atol, rtol)
             ok = math.isfinite(ratio) and ratio <= 1.0
             tol_text = f"worst element at {ratio:.3f} of its tolerance " \
-                       f"({ATTN_ATOL:g} * row max|want| + {ATTN_RTOL:g} * |want|)"
+                       f"({atol:g} * row max|want| + {rtol:g} * |want|)"
         else:
             tol = rel_tol * (want.float().abs().max().item() or 1.0)
             ok = math.isfinite(err) and err <= tol
@@ -173,14 +187,17 @@ class Smoke:
                                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
 
     # -- kernel phases --------------------------------------------------------
-    def tt_phase(self, arch, role, spec, b):
+    def tt_phase(self, arch, role, spec, b, epi=None):
+        """``epi``: the call site's epilogue (default: silu on gate, none on
+        up, the block's residual elsewhere)."""
         torch = self.torch
         from repro_torch.kernels import tt_linear as k
         cores = [self.randn(*s, dtype=torch.bfloat16, scale=1 / math.sqrt(s[0]))
                  for s in spec.core_matrix_shapes()]
         x = self.randn(b, spec.n_in, dtype=torch.bfloat16)
-        epi = {"gate": dict(activation="silu"), "up": {}}.get(
-            role, dict(residual=self.randn(b, spec.n_out, dtype=torch.bfloat16)))
+        if epi is None:
+            epi = {"gate": dict(activation="silu"), "up": {}}.get(
+                role, dict(residual=self.randn(b, spec.n_out, dtype=torch.bfloat16)))
         got = k.tt_linear(x, cores, spec, **epi)
         want = k.tt_linear_ref(x, cores, spec, **epi)
         ms = self.time_ms(lambda i: k.tt_linear(x, cores, spec, **epi))
@@ -432,6 +449,99 @@ class Smoke:
                     ms, plain_ms, None, "none: torch has no linear-recurrence scan op",
                     nbytes, 8.0 * real * w, F32_FLOPS)
 
+
+    def tt_embed_phase(self, spec, t):
+        """TT embedding rows of T ids at llama2-7b's embed spec (bf16 cores),
+        four of them out of range (-1, -V-3, V, V+7).  Held element by element:
+        both sides are f32 chains of the same products over r, summed in other
+        orders."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import tt_embed as k
+        cores = [self.randn(*s, dtype=torch.bfloat16, scale=1 / math.sqrt(s[0]))
+                 for s in spec.core_matrix_shapes()]
+        v = spec.n_out
+        ids = torch.randint(0, v, (t,), generator=self.gen, device=self.dev, dtype=torch.int32)
+        ids[:4] = torch.tensor([-1, -v - 3, v, v + 7], dtype=torch.int32)
+        got, want = k.tt_embed(ids, cores, spec), k.tt_embed_ref(ids, cores, spec)
+        ms = self.time_ms(lambda i: k.tt_embed(ids, cores, spec))
+        plain_ms = self.time_ms(lambda i: k.tt_embed_ref(ids, cores, spec), iters=5)
+        table = k.tt_embed_ref(torch.arange(v, device=self.dev), cores, spec)  # (V, D) f32
+        ids_in = k.resolve_ids(ids, v)
+        lib_ms = self.time_ms(lambda i: F.embedding(ids_in, table))
+        del table
+        flops, width = 0, spec.in_modes[0]
+        for j in range(1, spec.d):  # stage j: (width, r_j) x (r_j, n_j r_{j+1}) per token
+            flops += 2 * width * spec.ranks[j] * spec.in_modes[j] * spec.ranks[j + 1]
+            width *= spec.in_modes[j]
+        nbytes = 4 * t + 2 * spec.n_params() + 4 * t * spec.n_in
+        self.record("tt_embed", f"llama2-7b embed T={t} V={v} D={spec.n_in} modes "
+                    f"{spec.out_modes}x{spec.in_modes} r16 bf16 cores", got, want,
+                    ("rows", 1e-5, 1e-5), "f32 chains of the same products, summed in "
+                    "other orders", ms, plain_ms, lib_ms,
+                    "F.embedding on the reconstructed f32 table", nbytes, t * flops, F32_FLOPS)
+
+    def wkv_phase(self, s, int8):
+        """The wkv scan at rwkv6-7b's serve shapes (B 8, H 64, hd 64) over S
+        steps (S = 1: decode), r/k/v bf16, w f32: slot 1 idle, slot 2
+        tail-padded (S > 1), slot 3's decays all below the prefill floor
+        (w ~ 1e-3 < e^-4.9), the others in (0.5, 1).  An f32 state's idle
+        row comes back bitwise, an int8 one's payload and scale too; the
+        int8 payload is held within one step of the plain version's."""
+        torch = self.torch
+        from repro_torch.kernels import scan_wkv as k
+        b, h, hd = 8, 64, 64
+        bf16 = torch.bfloat16
+        r, kk, v = (self.randn(b, s, h, hd, dtype=bf16) for _ in range(3))
+        w = 0.5 + 0.499 * torch.rand(b, s, h, hd, generator=self.gen, device=self.dev)
+        w[3] = 5e-4 + 1.5e-3 * torch.rand(s, h, hd, generator=self.gen, device=self.dev)
+        u = self.randn(h, hd, scale=0.5)
+        state0 = self.randn(b, h, hd, hd)
+        scale0 = None
+        if int8:
+            scale0 = state0.abs().amax(dim=(-2, -1)).clamp(min=1e-8) / 127.0
+            state0 = torch.round(state0 / scale0[..., None, None]).to(torch.int8)
+        pos = torch.arange(s, device=self.dev, dtype=torch.int32)[None].repeat(b, 1) + 300
+        pos[1] = -1
+        if s > 1:
+            pos[2, 100:] = -1
+
+        def run(i, fn=k.wkv_scan):
+            return fn(r, kk, v, w, u, state0, pos, state_scale=scale0)
+
+        (y, st, sc), (yw, stw, scw) = run(0), run(0, k.wkv_scan_ref)
+        ms = self.time_ms(run)
+        plain_ms = self.time_ms(lambda i: run(i, k.wkv_scan_ref), iters=3)
+        bitwise = {"idle row state": torch.equal(st[1], state0[1])}
+        if int8:
+            bitwise["idle row scale"] = torch.equal(sc[1], scale0[1])
+            step = (st.int() - stw.int()).abs().max().item()
+            sc_err = ((sc - scw).abs() / scw).max().item()
+            checks = {f"int8 payload within one step (max {step})": step <= 1,
+                      f"scale within 1e-5 relative ({sc_err:.2e})": sc_err <= 1e-5}
+        else:
+            st_err = (st - stw).abs().max().item() / stw.abs().max().item()
+            checks = {f"state within 1e-4 of max|want| ({st_err:.2e})": st_err <= 1e-4}
+        real = int((pos >= 0).sum())
+        n_steps = b * s
+        elt = 1 if int8 else 4
+        nbytes = (3 * 2 + 4 + 4) * n_steps * h * hd + 4 * h * hd + 4 * pos.numel() \
+            + 2 * elt * b * h * hd * hd + (2 * 4 * b * h if int8 else 0)
+        # per state element: a real step's kv product, output and update (7 ops);
+        # a padding step's output r . S (2 ops)
+        flops = (7.0 * real + 2.0 * (n_steps - real)) * h * hd * hd
+        label = f"{'decode' if s == 1 else 'prefill'} B={b} S={s} H={h} hd={hd} bf16 r/k/v, " \
+                f"{'int8' if int8 else 'f32'} state"
+        print(f"[wkv_scan] {label}: bitwise {bitwise}; {checks}", flush=True)
+        for what, good in list(bitwise.items()) + list(checks.items()):
+            if not good:
+                self.failures.append(f"wkv_scan {label}: {what}")
+        self.record("wkv_scan", label, y, yw, 1e-4,
+                    "f32 recurrence: the kernel walks the steps with the floored decay, the "
+                    "plain version takes the chunked form", ms, plain_ms, None,
+                    "none: torch has no op for a matrix-state linear recurrence",
+                    nbytes, flops, F32_FLOPS)
+
     # -- logits check ---------------------------------------------------------
     def session(self, cfg, max_len):
         """The serving session of ``cfg`` at the serve geometry (8 slots,
@@ -444,15 +554,10 @@ class Smoke:
         bt = self.np.arange(1, 1 + 8 * width, dtype=self.np.int32).reshape(8, width)
         return sess, sess.with_tables(sess.init_state(), bt)
 
-    def logits_check(self, cfg, params, prompts, max_len, every_position, decode_steps=4):
-        """The serve phase's geometry (8 slots, its prompts in 256-token
-        chunks, then ``decode_steps`` decode steps on fixed random tokens)
-        through the kernels and through the plain versions.  The logits of
-        every prompt position are compared, or with ``every_position`` off
-        (a 256000-token vocabulary) those of each row's last position in
-        each chunk, and the logits of every decode step."""
+    def _check_inputs(self, cfg, prompts, decode_steps):
+        """The serve geometry's prefill tiles (slots x 256-token chunks, -1 =
+        padding) and ``decode_steps`` decode steps of fixed random tokens."""
         torch, np = self.torch, self.np
-        from repro_torch.kernels import dispatch
         slots, chunk = len(prompts), 256
         lens = np.array([len(p) for p in prompts])
         n_chunks = -(-int(lens.max()) // chunk)
@@ -464,60 +569,172 @@ class Smoke:
         dec_toks = torch.from_numpy(self.rng.integers(0, cfg.vocab_size, (decode_steps, slots))
                                     .astype(np.int32)).to(self.dev)
         dec_pos = torch.from_numpy(lens.astype(np.int32)).to(self.dev)
+        chunks = [(toks[:, c * chunk:(c + 1) * chunk].contiguous(),
+                   pos[:, c * chunk:(c + 1) * chunk].contiguous()) for c in range(n_chunks)]
+        steps = [(dec_toks[i][:, None].contiguous(), dec_pos + i) for i in range(decode_steps)]
+        return lens, chunks, steps
+
+    def compare_logits(self, path, kernel, plain, what):
+        """Kernel-route logits against plain-route logits, (rows, V) each:
+        max|d|/max|ref| <= 0.1, mean|d|/mean|ref| <= 0.05, and the kernel
+        route's greedy token a top token of the plain route's within 0.05 of
+        max|ref| (random weights give near-ties that may flip)."""
+        a, b = kernel, plain
+        scale = b.abs().max().item()
+        rel = (a - b).abs().max().item() / scale
+        mean_rel = (a - b).abs().mean().item() / b.abs().mean().item()
+        pick = a.argmax(-1, keepdim=True)
+        gap = ((b.max(-1).values - b.gather(-1, pick)[:, 0]).max().item()) / scale
+        agree = (pick[:, 0] == b.argmax(-1)).float().mean().item()
+        good = all(map(math.isfinite, (rel, mean_rel, gap))) and rel <= 0.1 and \
+            mean_rel <= 0.05 and gap <= 0.05
+        print(f"[logits {path}] {what}: max|d|/max|ref|={rel:.4f} (tol 0.1) "
+              f"mean|d|/mean|ref|={mean_rel:.4f} (tol 0.05) greedy-token logit gap "
+              f"{gap:.4f} of max|ref| (tol 0.05; argmax agreement {agree:.3f}) "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        return good
+
+    def logits_check(self, cfg, params, prompts, max_len, every_position, path,
+                     decode_steps=4):
+        """The serve phase's geometry (8 slots, its prompts in 256-token
+        chunks, then ``decode_steps`` decode steps on fixed random tokens)
+        through the kernels and through the plain versions.  The logits of
+        every prompt position are compared, or with ``every_position`` off
+        (a 256000-token vocabulary) those of each row's last position in
+        each chunk, and the logits of every decode step.  bf16 through every
+        layer: kernels and plain versions sum in different orders, so their
+        bf16 roundings differ and the differences compound layer by layer."""
+        torch = self.torch
+        from repro_torch.kernels import dispatch
+        lens, chunks, steps = self._check_inputs(cfg, prompts, decode_steps)
         out = {}
         for plain in (False, True):
             sess, state = self.session(cfg, max_len)
             pre, dec = [], []
             with dispatch.force_plain() if plain else contextlib.nullcontext():
-                for c in range(n_chunks):
-                    sl = slice(c * chunk, (c + 1) * chunk)
-                    real = pos[:, sl] >= 0
+                for tok, pos in chunks:
+                    real = pos >= 0
                     if every_position:
-                        lg, state = sess.prefill_chunk(params, state, toks[:, sl], pos[:, sl])
+                        lg, state = sess.prefill_chunk(params, state, tok, pos)
                         pre.append(lg[real])
                     else:
                         cols = (real.sum(1) - 1).clamp(min=0)
-                        lg, state = sess.prefill_chunk(params, state, toks[:, sl], pos[:, sl],
-                                                       logit_cols=cols)
+                        lg, state = sess.prefill_chunk(params, state, tok, pos, logit_cols=cols)
                         pre.append(lg[real.any(1)])
-                for i in range(decode_steps):
-                    lg, state = sess.decode_step(params, state, dec_toks[i][:, None].contiguous(),
-                                                 dec_pos + i)
+                for tok, pos in steps:
+                    lg, state = sess.decode_step(params, state, tok, pos)
                     dec.append(lg)
             out[plain] = (torch.cat(pre), torch.cat(dec))
             del state, pre, dec
             torch.cuda.empty_cache()
-        ok = True
         which = "every prompt position" if every_position else "each row's last position per chunk"
+        geometry = f"prompts {lens.tolist()} in {len(chunks)} chunks of 256, {len(steps)} " \
+                   f"decode steps x {len(prompts)} slots, bf16 through {cfg.n_layers} layers"
+        ok = True
         for k, name in enumerate(("prefill", "decode")):
-            a, b = out[False][k], out[True][k]
-            scale = b.abs().max().item()
-            rel = (a - b).abs().max().item() / scale
-            mean_rel = (a - b).abs().mean().item() / b.abs().mean().item()
-            # the kernel path's greedy token must be a top token of the plain path up to
-            # the numerical tolerance: random weights give near-ties that may flip
-            pick = a.argmax(-1, keepdim=True)
-            gap = ((b.max(-1).values - b.gather(-1, pick)[:, 0]).max().item()) / scale
-            agree = (pick[:, 0] == b.argmax(-1)).float().mean().item()
-            good = all(map(math.isfinite, (rel, mean_rel, gap))) and rel <= 0.1 and \
-                mean_rel <= 0.05 and gap <= 0.05
-            ok &= good
-            print(f"[logits {cfg.name}] {name} ({a.shape[0]} rows: "
-                  f"{which if name == 'prefill' else 'every step'}; prompts {lens.tolist()} "
-                  f"in {n_chunks} chunks of {chunk}, {decode_steps} decode steps x {slots} "
-                  f"slots): max|d|/max|ref|={rel:.4f} (tol 0.1) "
-                  f"mean|d|/mean|ref|={mean_rel:.4f} (tol 0.05) greedy-token logit gap "
-                  f"{gap:.4f} of max|ref| (tol 0.05; argmax agreement {agree:.3f}) "
-                  f"{'ok' if good else 'FAIL'} -- bf16 through {cfg.n_layers} layers: kernels "
-                  "and plain versions sum in different orders, so their bf16 roundings "
-                  "differ and the differences compound layer by layer", flush=True)
+            rows = f"{out[True][k].shape[0]} rows: {which if k == 0 else 'every step'}"
+            ok &= self.compare_logits(path, out[False][k], out[True][k],
+                                      f"{name} ({rows}; {geometry})")
         del out
         torch.cuda.empty_cache()
         if not ok:
-            self.failures.append(f"{cfg.name} full-width logits check")
+            self.failures.append(f"{path} full-width logits check")
+
+    def layerwise_check(self, cfg, params, prompts, path, decode_steps=4, layer_tol=2.0 ** -5):
+        """rwkv6-7b's check at the serve geometry, layer by layer.  With random
+        weights this model amplifies any rounding difference through its 32
+        bf16 layers: the plain route against itself with some bf16 values of
+        its embedding table moved by one ulp differs end to end about as much
+        as the kernel route does (printed below), so the end-to-end
+        comparison cannot separate a faulty kernel from rounding.  Here every layer runs both routes on
+        the plain route's input and state: each layer's output and new wkv
+        state must sit within ``layer_tol`` of max|ref| (8 bf16 ulps: a layer
+        rounds its linears' outputs, the scan's normalized output and the
+        gates to bf16), and the logits of the last layer's two outputs are
+        held to the criteria of the other paths."""
+        torch = self.torch
+        from repro_torch.kernels import dispatch
+        from repro_torch.models import rwkv
+        from repro_torch.models.modules import apply_norm, dt, embed_lookup, unembed
+        lens, chunks, steps = self._check_inputs(cfg, prompts, decode_steps)
+        cd = dt(cfg.compute_dtype)
+        specs = rwkv.rwkv_specs(cfg)
+        state = rwkv.init_session_state(cfg, len(prompts), torch.bfloat16, device=self.dev)
+        head = rwkv.head_weight(params, cfg).T
+        worst = {"layer output": (0.0, None), "wkv state": (0.0, None)}
+        logits = {"prefill": ([], []), "decode": ([], [])}
+        for kind, calls in (("prefill", chunks), ("decode", [(t, p[:, None]) for t, p in steps])):
+            for ci, (tok, pos) in enumerate(calls):
+                x = embed_lookup(params["embed"], tok, cd)
+                for li, (p, st) in enumerate(zip(params["blocks"], state)):
+                    inp = {k: (t.float() if k in ("x_tm", "x_cm") else t) for k, t in st.items()}
+                    with dispatch.force_plain():
+                        xp, newp = rwkv.apply_block(p, specs, cfg, x, inp, cd, positions=pos)
+                    xk, newk = rwkv.apply_block(p, specs, cfg, x, inp, cd, positions=pos)
+                    real = pos >= 0
+                    for what, a, b in (("layer output", xk[real], xp[real]),
+                                       ("wkv state", newk["wkv"], newp["wkv"])):
+                        r = (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                        if not r <= worst[what][0]:
+                            worst[what] = (r, f"{kind} {ci} layer {li}")
+                    st["wkv"] = newp["wkv"]
+                    st["x_tm"].copy_(newp["x_tm"])
+                    st["x_cm"].copy_(newp["x_cm"])
+                    x = xp
+                for route, y in zip(logits[kind], (xk, xp)):
+                    route.append(unembed(apply_norm(params["final_norm"], y), head, cd)[pos >= 0])
+        geometry = f"prompts {lens.tolist()} in {len(chunks)} chunks of 256, {len(steps)} " \
+                   f"decode steps x {len(prompts)} slots"
+        ok = True
+        for what, (r, where) in worst.items():
+            good = math.isfinite(r) and r <= layer_tol
+            ok &= good
+            print(f"[layers {path}] {what}, kernels vs plain on the plain route's input, worst "
+                  f"over {cfg.n_layers} layers x {len(chunks)} chunks + {len(steps)} decode steps: "
+                  f"max|d|/max|ref|={r:.4f} at {where} (tol {layer_tol:g}) "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+        for kind, (k_rows, p_rows) in logits.items():
+            ok &= self.compare_logits(path, torch.cat(k_rows), torch.cat(p_rows),
+                                      f"{kind}, last layer on the plain route's input "
+                                      f"({geometry})")
+        del logits, state
+        # End to end, for the record (not a gate): the kernel route against the
+        # plain route over the prefill chunks, and the plain route against itself
+        # with its embedding table perturbed by 2^-9 relative (which moves a few
+        # of its bf16 values by one ulp).
+        table = params["embed"]["table"]
+        noise = torch.randn(table.shape, generator=self.gen, device=self.dev)
+        noisy = (table.float() * (1 + 2.0 ** -9 * noise)).to(table.dtype)
+        moved = (noisy != table).float().mean().item()
+        del noise
+        e2e = {}
+        for name, prm, plain in (("kernel", params, False), ("plain", params, True),
+                                 ("perturbed plain", dict(params, embed={"table": noisy}), True)):
+            sess, st = self.session(cfg, 2048)
+            rows = []
+            with dispatch.force_plain() if plain else contextlib.nullcontext():
+                for tok, pos in chunks:
+                    lg, st = sess.prefill_chunk(prm, st, tok, pos)
+                    rows.append(lg[pos >= 0])
+            e2e[name] = torch.cat(rows)
+            del st, rows
+        ref = e2e["plain"]
+        for name in ("kernel", "perturbed plain"):
+            d = e2e[name] - ref
+            print(f"[layers {path}] end to end over {cfg.n_layers} bf16 layers (not a gate), "
+                  f"{name} route vs plain route: max|d|/max|ref|="
+                  f"{d.abs().max().item() / ref.abs().max().item():.4f} mean|d|/mean|ref|="
+                  f"{d.abs().mean().item() / ref.abs().mean().item():.4f} argmax agreement "
+                  f"{(e2e[name].argmax(-1) == ref.argmax(-1)).float().mean().item():.3f}"
+                  + (f" ({moved:.4f} of the table's bf16 values moved by the perturbation)"
+                     if name != "kernel" else ""), flush=True)
+        del e2e, noisy, ref
+        torch.cuda.empty_cache()
+        if not ok:
+            self.failures.append(f"{path} full-width layer-by-layer check")
 
     # -- serve phase (a main path) ---------------------------------------------
-    def serve(self, cfg, params, card, prompts, max_len):
+    def serve(self, cfg, params, card, prompts, max_len, path):
         torch = self.torch
         np = self.np
         from repro_torch.serve.engine import Engine
@@ -547,9 +764,9 @@ class Smoke:
         launches = {k: n for k, (n, _) in counts.items()}
         plain = {k: n for k, (_, n) in counts.items()}
         ttft = np.array([r.t_first - r.t_submit for r in reqs])
-        print(f"[serve {cfg.name}] prompts={[len(p) for p in prompts]} launches={launches} "
+        print(f"[serve {path}] prompts={[len(p) for p in prompts]} launches={launches} "
               f"plain_calls_on_cuda={plain}", flush=True)
-        print(f"[serve {cfg.name}] {card}: TTFT p50={np.median(ttft) * 1e3:.1f} ms "
+        print(f"[serve {path}] {card}: TTFT p50={np.median(ttft) * 1e3:.1f} ms "
               f"max={ttft.max() * 1e3:.1f} ms; decode {dec['tokens']} tokens in "
               f"{dec['t']:.3f} s = {dec['tokens'] / dec['t']:.1f} tokens/s; "
               f"run wall {wall:.2f} s; peak device memory "
@@ -560,21 +777,23 @@ class Smoke:
             "pool drained": eng.manager is None
             or eng.num_free_blocks == eng.manager.num_blocks - 1,
             "every kernel of the path launched": all(
-                launches[k] > 0 for k in PATH_KERNELS[cfg.name]),
+                launches[k] > 0 for k in PATH_KERNELS[path]),
             "no plain version on CUDA": not any(plain.values()),
             "tokens in vocab": all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
         }
         for what, good in checks.items():
             if not good:
-                self.failures.append(f"serve {cfg.name}: {what}")
-        print(f"[serve {cfg.name}] checks: {checks}", flush=True)
+                self.failures.append(f"serve {path}: {what}")
+        print(f"[serve {path}] checks: {checks}", flush=True)
         return launches
 
     # -- decode-step profile ---------------------------------------------------
-    def profile(self, cfg, params, card, max_len, steps: int = 5, with_chunk: bool = False):
+    def profile(self, cfg, params, card, max_len, path, steps: int = 5,
+                with_chunk: bool = False):
         """Wall time vs device kernel time of full-width decode steps (8 slots
         at ~1 K context) and, with ``with_chunk``, of one 256-token prefill
-        chunk for all 8 slots: the device's busy share and the top kernels."""
+        chunk for all 8 slots: the device's busy share, the top kernels and
+        each hand kernel's device time."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         sess, state = self.session(cfg, max_len)
@@ -600,11 +819,21 @@ class Smoke:
                       and not e.key.startswith(("aten::", "cuda"))]
             device_s = sum(e.self_device_time_total for e in events) / 1e6
             top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-            print(f"[profile {cfg.name}] {card}: {what} wall {wall / n * 1e3:.2f} ms, device "
+            # the hand kernels live in anonymous namespaces of csrc/ (attention tiles
+            # in flash::); PyTorch's own (at::native::(anonymous namespace)::...) do not count
+            hand = [e for e in events if "flash::" in e.key
+                    or ("(anonymous namespace)::" in e.key and "at::" not in e.key)]
+            hand_s = sum(e.self_device_time_total for e in hand) / 1e6
+            print(f"[profile {path}] {card}: {what} wall {wall / n * 1e3:.2f} ms, device "
                   f"kernel time {device_s / n * 1e3:.2f} ms, device busy share "
                   f"{device_s / wall:.3f}; top kernels per call: "
                   + "; ".join(f"{e.key[:48]} {e.self_device_time_total / n / 1e3:.3f} ms"
                               for e in top), flush=True)
+            print(f"[profile {path}] {what}: hand kernels {hand_s / n * 1e3:.3f} ms per call ("
+                  + "; ".join(f"{e.key[:48]} {e.self_device_time_total / n / 1e3:.3f} ms"
+                              for e in sorted(hand, key=lambda e: -e.self_device_time_total))
+                  + f"), library and PyTorch kernels {(device_s - hand_s) / n * 1e3:.3f} ms",
+                  flush=True)
 
         def decode():
             nonlocal state
@@ -630,8 +859,8 @@ def main() -> int:
     import numpy as np  # noqa: F401
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.models import griffin, transformer
-    from repro_torch.models.modules import linear_spec
+    from repro_torch.models import griffin, rwkv, transformer
+    from repro_torch.models.modules import embed_spec, init_embed, linear_spec
     from repro_torch.serve.steps import serve_config_of
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -656,6 +885,12 @@ def main() -> int:
             spec = linear_spec(cfg, role, n_in, n_out).tt
             for b in (8, 2048):
                 s.tt_phase(arch, role.replace("mlp_", ""), spec, b)
+    rw = serve_config_of(get_config("rwkv6-7b"))
+    for role, n_in, n_out, epi in (("tm_out", 4096, 4096, None),
+                                   ("cm_key", 4096, rw.d_ff, dict(activation="relu2")),
+                                   ("cm_value", rw.d_ff, 4096, {})):
+        for b in (8, 2048):
+            s.tt_phase("rwkv6-7b", role, linear_spec(rw, role, n_in, n_out).tt, b, epi)
     for k_in, m in ((4096, 4096), (4096, 11008), (11008, 4096), (2560, 2560), (2560, 256)):
         for b in (8, 2048):
             s.int4_phase(k_in, m, b)
@@ -672,31 +907,66 @@ def main() -> int:
                  (1500, 600, 2048, 256, 0, 1000, 64, 1800))
     for steps in (1, 256):
         s.rglru_phase(steps)
+    llama_embed = serve_config_of(get_config("llama2-7b"))
+    llama_embed = llama_embed.replace(ttd=dataclasses.replace(llama_embed.ttd, embed=True))
+    for t in (8, 2048):
+        s.tt_embed_phase(embed_spec(llama_embed).tt, t)
+    for steps in (1, 256):
+        for int8 in (False, True):
+            s.wkv_phase(steps, int8)
     print(f"[phases] kernel phases took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     launches = {}
-    for arch, max_len, lo, hi in (("llama2-7b", 2048, 64, 1537),
-                                  ("recurrentgemma-2b", 4096, 64, 3073)):
+    models = {"dense": transformer, "griffin": griffin, "rwkv": rwkv}
+    params = None
+    # (path, arch, max_len, prompt lengths in [lo, hi)); the TT-embed path
+    # reuses llama2-7b's params with TT embedding cores in place of the table
+    for path, arch, max_len, lo, hi in (("llama2-7b", "llama2-7b", 2048, 64, 1537),
+                                        ("llama2-7b-tt-embed", "llama2-7b", 2048, 64, 1537),
+                                        ("recurrentgemma-2b", "recurrentgemma-2b", 4096, 64,
+                                         3073),
+                                        ("rwkv6-7b", "rwkv6-7b", 2048, 64, 1537)):
         cfg = serve_config_of(get_config(arch))
-        model = griffin if cfg.family == "griffin" else transformer
         t0 = time.perf_counter()
-        params = model.init_lm(cfg, seed=SEED, device="cuda")
-        torch.cuda.synchronize()
-        print(f"[init] {arch} serving config ({cfg.n_layers} layers, int4 g128 + TT, bf16) "
-              f"random params in {time.perf_counter() - t0:.1f} s; "
-              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+        if path == "llama2-7b-tt-embed":
+            cfg = llama_embed
+            dense_bytes = params["embed"]["table"].numel() * params["embed"]["table"].element_size()
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED)
+            params["embed"] = init_embed(cfg, torch.bfloat16, generator=gen, device="cuda")
+            tt_bytes = sum(c.numel() * c.element_size() for c in params["embed"]["cores"])
+            torch.cuda.empty_cache()
+            print(f"[init] {path}: embedding table {list(embed_spec(cfg).tt.out_modes)} x "
+                  f"{list(embed_spec(cfg).tt.in_modes)} rank 16 TT cores, {tt_bytes} bytes "
+                  f"against {dense_bytes} bytes of the dense bf16 table ({dense_bytes - tt_bytes} "
+                  f"bytes saved, {dense_bytes / tt_bytes:.0f}x); "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+        else:
+            params = None
+            gc.collect()  # the last serve phase's engine sits in a reference cycle
+            torch.cuda.empty_cache()
+            params = models[cfg.family].init_lm(cfg, seed=SEED, device="cuda")
+            torch.cuda.synchronize()
+            print(f"[init] {arch} serving config ({cfg.n_layers} layers, int4 g128 + TT, bf16) "
+                  f"random params in {time.perf_counter() - t0:.1f} s; "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
         lens = s.rng.integers(lo, hi, 8)
         if cfg.window and lens.max() <= cfg.window + 256:  # one prompt wraps its ring
             lens[int(lens.argmax())] = s.rng.integers(cfg.window + 257, hi)
         prompts = [[int(t) for t in s.rng.integers(0, cfg.vocab_size, n)] for n in lens]
-        s.logits_check(cfg, params, prompts, max_len, every_position=cfg.vocab_size <= 65536)
+        if cfg.family == "rwkv":
+            s.layerwise_check(cfg, params, prompts, path)
+        else:
+            s.logits_check(cfg, params, prompts, max_len,
+                           every_position=cfg.vocab_size <= 65536, path=path)
         torch.cuda.reset_peak_memory_stats()
-        path = s.serve(cfg, params, card, prompts, max_len)
-        launches.update({k: path[k] for k in PATH_KERNELS[arch] if k not in launches})
-        launches[arch] = path
-        s.profile(cfg, params, card, max_len, with_chunk=cfg.family == "griffin")
-        del params
-        torch.cuda.empty_cache()
+        counts = s.serve(cfg, params, card, prompts, max_len, path)
+        launches.update({k: counts[k] for k in PATH_KERNELS[path] if k not in launches})
+        launches[path] = counts
+        s.profile(cfg, params, card, max_len, path,
+                  with_chunk=cfg.family in ("griffin", "rwkv"))
+    del params
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -706,8 +976,8 @@ def main() -> int:
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                         "library_ms": main["library_ms"], "shape": main["label"],
-                        "launches_by_path": {arch: launches[arch][name]
-                                             for arch in PATH_KERNELS}})
+                        "launches_by_path": {path: launches[path][name]
+                                             for path in PATH_KERNELS}})
     if s.failures:
         print("FAILED: " + "; ".join(s.failures), flush=True)
         return 1

@@ -6,6 +6,7 @@ _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "llama2-7b": "llama2_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 ALL_ARCHS = tuple(_MODULES)

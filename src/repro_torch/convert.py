@@ -1,11 +1,12 @@
 """Param bridge from the JAX package's trees to the port's params.
 
 ``params_from_jax`` takes the tree ``repro.models.transformer.init_lm``
-(dense; the paged and ring backends share it) or
-``repro.models.griffin.init_lm`` builds, with every leaf already a numpy
+(dense; the paged and ring backends share it), ``repro.models.griffin.init_lm``
+or ``repro.models.rwkv.init_lm`` builds, with every leaf already a numpy
 array (e.g. after ``jax.device_get``), and returns the port's params on
 ``device``: each stacked leading layer axis (dense segments, griffin's
-pattern groups) becomes a list of per-layer (per-group) dicts.
+pattern groups, rwkv's blocks) becomes a list of per-layer (per-group)
+dicts.  Lists of leaves (TT cores, a TT embedding's included) stay lists.
 numpy holds bf16 leaves as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects, so they cross as their uint16 bit patterns and are viewed back as
 ``torch.bfloat16``.  Nothing here imports JAX.
@@ -42,6 +43,12 @@ def _map(tree, fn):
 def params_from_jax(tree: dict[str, Any], cfg: ModelConfig, *, device=None) -> dict[str, Any]:
     """Numpy-leaved JAX param tree -> the port's params on ``device``."""
     device = resolve_device(device)
+    if cfg.family == "rwkv":
+        out = {k: _map(v, lambda a: _tensor(a, device))
+               for k, v in tree.items() if k != "blocks"}
+        out["blocks"] = [_map(tree["blocks"], lambda a, i=i: _tensor(np.asarray(a)[i], device))
+                         for i in range(cfg.n_layers)]
+        return out
     if cfg.family == "griffin":
         n_groups = pattern_plan(cfg)[0]
         out = {k: _map(v, lambda a: _tensor(a, device))

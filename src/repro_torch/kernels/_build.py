@@ -35,6 +35,8 @@ SIGNATURES = {
     "rt_paged_prefill_attention": [P] * 8 + [I] * 8 + [F, I, I, P],
     "rt_ring_prefill_attention": [P] * 8 + [I] * 7 + [F, I, I, P],
     "rt_rglru_scan": [P] * 6 + [I] * 4 + [P],
+    "rt_tt_embed": [P, P, I, P, I, I, P, P, P, I, I, I, P],
+    "rt_wkv_scan": [P] * 11 + [I] * 7 + [P],
 }
 
 _LIB = None

@@ -22,6 +22,8 @@ from . import int4_matmul as _int4
 from . import paged_attention as _paged
 from . import prefill_attention as _prefill
 from . import scan_rglru as _rglru
+from . import scan_wkv as _wkv
+from . import tt_embed as _embed
 from . import tt_linear as _tt
 from .epilogue import apply_epilogue
 
@@ -114,3 +116,23 @@ def rglru_scan(log_a, gx, h0, pos=None, *, scan_dtype=None):
     if _plain.get():
         return _rglru.rglru_scan_ref(log_a, gx, h0, pos, scan_dtype=scan_dtype)
     return _rglru.rglru_scan(log_a, gx, h0, pos, scan_dtype=scan_dtype)
+
+
+def tt_embed(ids, cores, spec):
+    """Rows of a vocab-axis TT embedding table (``spec``: M = V, N = D):
+    ids of any int shape (negative ids wrap once, then clamp) -> (..., D)
+    f32."""
+    if _plain.get():
+        return _embed.tt_embed_ref(ids, cores, spec)
+    return _embed.tt_embed(ids, cores, spec)
+
+
+def wkv_scan(r, k, v, w, u, state0, pos=None, *, state_scale=None):
+    """RWKV6 wkv recurrence: r/k/v/w (B, S, H, hd), u (H, hd), state0
+    (B, H, hd, hd) f32, or int8 with ``state_scale`` (B, H) f32, pos (B, S)
+    (-1 = padding step).  Returns (y (B, S, H, hd) f32, new state, new scale
+    or None); S > 1 takes the floored chunked form, S == 1 the exact step.
+    Both versions check the shapes and raise ``ValueError``."""
+    if _plain.get():
+        return _wkv.wkv_scan_ref(r, k, v, w, u, state0, pos, state_scale=state_scale)
+    return _wkv.wkv_scan(r, k, v, w, u, state0, pos, state_scale=state_scale)

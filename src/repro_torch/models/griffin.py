@@ -292,7 +292,7 @@ def prefill_session_chunk(params, cfg: ModelConfig, state, tokens, positions,
     ``logit_cols[b]`` of each row when given, and the state (updated in
     place)."""
     compute_dtype = dt(cfg.compute_dtype)
-    x = embed_lookup(params["embed"], tokens, compute_dtype, cfg) * math.sqrt(cfg.d_model)
+    x = embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
     positions = positions.to(torch.int32).contiguous()
     x, state = _session_stack(params, cfg, state, x, positions, compute_dtype)
     if logit_cols is not None:

@@ -20,6 +20,7 @@ from ..core.quant import quantize_int4
 from ..core.tt_linear import init_tt_linear
 from ..core.ttd import TTSpec
 from ..kernels import dispatch
+from ..kernels.tt_embed import resolve_ids
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -263,23 +264,48 @@ def apply_mlp(params, x, specs: dict[str, LinearSpec], cfg: ModelConfig, compute
 
 
 # ---------------------------------------------------------------------------
-# Embedding / unembedding (dense tables)
+# Embedding / unembedding: a dense table, or a vocab-axis TT (TensorGPT)
 # ---------------------------------------------------------------------------
+def embed_spec(cfg: ModelConfig) -> LinearSpec | None:
+    """TT spec of the embedding table, or ``None`` for the dense gather.
+
+    The (V, D) table is the TT's (M, N) weight directly (M = V, N = D), so
+    ``out_modes`` factor the vocab and ``in_modes`` the model width, and a
+    row lookup is the digit-indexed core chain of ``dispatch.tt_embed``."""
+    ttd = cfg.ttd
+    if not (ttd.enabled and ttd.embed):
+        return None
+    try:
+        tt = TTSpec.make(cfg.d_model, cfg.vocab_size, ttd.embed_rank or ttd.rank,
+                         d=ttd.embed_d or ttd.d)
+    except ValueError:
+        return None  # un-factorizable vocab or width: the table stays dense
+    return LinearSpec("tt", cfg.d_model, cfg.vocab_size, tt=tt)
+
+
 def init_embed(cfg: ModelConfig, param_dtype, *, generator, device):
+    sp = embed_spec(cfg)
+    if sp is not None:
+        return init_tt_linear(sp.tt, generator=generator, device=device, dtype=param_dtype)
     std = 1.0 / math.sqrt(cfg.d_model)
     t = torch.randn(cfg.vocab_size, cfg.d_model, generator=generator, device=device)
     return {"table": (t * std).to(param_dtype)}
 
 
 def embed_lookup(params, ids, compute_dtype, cfg: ModelConfig | None = None):
-    """Dense row gather; a negative id wraps once, then ids clamp into range."""
+    """Rows of the table for int ``ids``: a dense gather, or the TT kernel
+    when the params carry cores (which needs the ``cfg`` they were built
+    for).  A negative id wraps once, then ids clamp into range."""
     if "cores" in params:
-        raise NotImplementedError("TT-compressed embeddings are not ported yet")
+        sp = embed_spec(cfg) if cfg is not None else None
+        if sp is None:
+            raise ValueError(
+                "params carry a TT-compressed embedding but the config does "
+                "not declare one (cfg.ttd.embed) — pass the cfg the tree was "
+                "compressed for")
+        return dispatch.tt_embed(ids, params["cores"], sp.tt).to(compute_dtype)
     table = params["table"]
-    v = table.shape[0]
-    ids = ids.to(torch.int64)
-    ids = torch.where(ids < 0, ids + v, ids).clamp(0, v - 1)
-    return table[ids].to(compute_dtype)
+    return table[resolve_ids(ids, table.shape[0])].to(compute_dtype)
 
 
 def unembed(x, table, compute_dtype):

@@ -1,8 +1,9 @@
 """Typed serving sessions (counterpart of ``repro.models.sessions``).
 
 Ported: the dense family's paged backend (shared block pools plus per-slot
-block tables) and ring backend (per-slot K/V rings), and griffin's recurrent
-backend (RG-LRU state, conv tails and windowed attention rings).  Every
+block tables) and ring backend (per-slot K/V rings), griffin's recurrent
+backend (RG-LRU state, conv tails and windowed attention rings) and rwkv's
+(wkv matrices and token-shift tails).  Every
 other family or backend raises the reference's ``NotImplementedError``.
 ``tokens``/``positions`` follow the reference's convention: rows are decode
 slots, positions are per-sequence absolute indices, ``-1`` marks
@@ -21,7 +22,7 @@ import torch
 
 from .._device import resolve_device
 from ..config import ModelConfig
-from . import griffin, transformer
+from . import griffin, rwkv, transformer
 
 CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int8": torch.int8}
@@ -156,6 +157,22 @@ class GriffinSession(InferenceSession):
         return griffin.decode_session_step(params, self.cfg, state, tokens, positions)
 
 
+class RwkvSession(InferenceSession):
+    """Constant-size recurrent state: wkv matrices + token-shift tails."""
+    backend = "recurrent"
+
+    def init_state(self):
+        return rwkv.init_session_state(self.cfg, self.spec.slots, self._dtype(),
+                                       device=self.device)
+
+    def prefill_chunk(self, params, state, tokens, positions, logit_cols=None):
+        return rwkv.prefill_session_chunk(params, self.cfg, state, tokens, positions,
+                                          logit_cols)
+
+    def decode_step(self, params, state, tokens, positions):
+        return rwkv.decode_session_step(params, self.cfg, state, tokens, positions)
+
+
 FAMILY_BACKENDS: dict[str, tuple[str, ...]] = {
     "dense": ("paged", "ring"),
     "moe": ("paged", "ring"),
@@ -179,6 +196,7 @@ _SESSION_TYPES: dict[tuple[str, str], type[InferenceSession]] = {
     ("dense", "paged"): PagedKVSession,
     ("dense", "ring"): RingKVSession,
     ("griffin", "recurrent"): GriffinSession,
+    ("rwkv", "recurrent"): RwkvSession,
 }
 
 

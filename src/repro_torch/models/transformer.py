@@ -25,6 +25,7 @@ from .modules import (
     apply_rope,
     dt,
     embed_lookup,
+    embed_spec,
     init_embed,
     init_linear,
     init_mlp,
@@ -201,11 +202,29 @@ def _paged_stack(params, cfg: ModelConfig, caches, x, rope_cs, block_tables,
 
 
 def logits_from_hidden(params, cfg: ModelConfig, x, compute_dtype=None):
+    """(…, D) -> (…, V) f32 logits.  A tied TT embedding unembeds through
+    its cores: their (M, N) = (V, D) weight maps (…, D) to (…, V) directly,
+    one ``tt_linear`` on f32 ``x``."""
     compute_dtype = compute_dtype or dt(cfg.compute_dtype)
-    if "cores" in params["embed"]:
-        raise NotImplementedError("TT-compressed embeddings are not ported yet")
+    if cfg.tie_embeddings and "cores" in params["embed"]:
+        sp = embed_spec(cfg)
+        if sp is None:
+            raise ValueError("embed params carry TT cores but cfg.ttd.embed is off")
+        return dispatch.tt_linear(x.to(torch.float32).contiguous(), params["embed"]["cores"],
+                                  sp.tt)
     table = params["embed"]["table"] if cfg.tie_embeddings else params["head"]["w"].T
     return unembed(x, table, compute_dtype)
+
+
+def head_weight(params, cfg: ModelConfig):
+    """(D, V) unembedding weight (tied or separate)."""
+    if cfg.tie_embeddings:
+        if "cores" in params["embed"]:
+            raise ValueError(
+                "tied TT-compressed embedding has no dense head weight — "
+                "logits go through logits_from_hidden's TT unembed path")
+        return params["embed"]["table"].T
+    return params["head"]["w"]
 
 
 def decode_step_paged(params, cfg: ModelConfig, caches, tokens, block_tables, positions):

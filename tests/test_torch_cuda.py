@@ -236,3 +236,113 @@ def test_unembed_logits_in_f32_from_bf16_operands(dev):
     got = unembed(x, table, torch.bfloat16)
     assert got.dtype == torch.float32 and got.shape == (2, 5, 4000)
     _close(got, x.float() @ table.float().T, 1e-5)
+
+
+@pytest.mark.parametrize("cdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("modes", [
+    ((8, 8, 8, 8), (20, 16, 10, 10), 16),   # llama2-7b's embed spec (V 32000, D 4096)
+    ((4, 4, 2, 2), (4, 4, 4, 4), 16),       # tinyllama reduced at rank 16
+    ((4, 4, 4), (8, 8, 4), 4),              # reduced, the CPU tests' spec
+    ((24,), (10,), 1),                      # d = 1
+])
+@pytest.mark.parametrize("t", [1, 8, 2048])
+def test_tt_embed_kernel(dev, modes, cdtype, t):
+    """Element by element at 1e-5 of the row max plus 1e-5 of the element:
+    both are f32 chains of the same products, summed in other orders.  Ids
+    out of range wrap once and clamp as the plain version's do."""
+    from repro_torch.core.ttd import TTSpec
+    from repro_torch.kernels import tt_embed as k
+    spec = TTSpec.make(0, 0, modes[2], d=len(modes[0]), in_modes=modes[0], out_modes=modes[1])
+    g = torch.Generator(device=dev).manual_seed(t + spec.n_out)
+    cores = [(torch.randn(s, generator=g, device=dev) / math.sqrt(s[0])).to(cdtype)
+             for s in spec.core_matrix_shapes()]
+    v = spec.n_out
+    ids = torch.randint(0, v, (t,), generator=g, device=dev, dtype=torch.int32)
+    ids[:4] = torch.tensor([-1, -v - 3, v, v + 7][:t], dtype=torch.int32)
+    n0 = k.launches
+    got = k.tt_embed(ids, cores, spec)
+    torch.cuda.synchronize()
+    assert k.launches == n0 + 1 and got.dtype == torch.float32 and got.shape == (t, spec.n_in)
+    _close_rows(got, k.tt_embed_plain(ids, cores, spec), 1e-5, 1e-5)
+    two_d = k.tt_embed(ids.reshape(1, t).long(), cores, spec)
+    assert two_d.shape == (1, t, spec.n_in) and torch.equal(two_d[0], got)
+
+
+def _wkv_inputs(dev, b, s, h, hd, in_dtype, state_dtype, seed):
+    """Slot 1 idle, slot 2 tail-padded (S > 1), slot 0's decays below the
+    prefill floor (w ~ 1e-3 < e^-4.9), the rest in (0.5, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(b, s, h, hd, generator=g, device=dev).to(in_dtype) for _ in range(3))
+    w = 0.5 + 0.499 * torch.rand(b, s, h, hd, generator=g, device=dev)
+    w[0] = 5e-4 + 1.5e-3 * torch.rand(s, h, hd, generator=g, device=dev)
+    u = 0.5 * torch.randn(h, hd, generator=g, device=dev)
+    state0 = torch.randn(b, h, hd, hd, generator=g, device=dev)
+    scale0 = None
+    if state_dtype == torch.int8:
+        scale0 = state0.abs().amax(dim=(-2, -1)).clamp(min=1e-8) / 127.0
+        state0 = torch.round(state0 / scale0[..., None, None]).to(torch.int8)
+    pos = torch.arange(s, device=dev, dtype=torch.int32)[None].repeat(b, 1) + 11
+    pos[1] = -1
+    if s > 1:
+        pos[2, s // 3:] = -1
+    return r, k, v, w, u, state0, pos, scale0
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hd", [(8, 256, 64, 64), (8, 1, 64, 64), (3, 20, 4, 16),
+                                      (3, 1, 4, 16), (4, 37, 2, 32)])
+def test_wkv_scan_kernel(dev, b, s, h, hd, in_dtype, state_dtype):
+    """y and an f32 state within 1e-4 of max|want| (the kernel walks the
+    steps with the floored decay, the plain version takes the chunked form:
+    f32 rounding only); an int8 payload within one step, its scale within
+    1e-5 relative; the idle slot's state (and scale) bitwise; the padded
+    slot's state bitwise equal to the kernel's over its real prefix alone."""
+    from repro_torch.kernels import scan_wkv as k
+    r, kk, v, w, u, state0, pos, scale0 = _wkv_inputs(dev, b, s, h, hd, in_dtype, state_dtype,
+                                                      b * s + hd)
+    n0 = k.launches
+    y, st, sc = k.wkv_scan(r, kk, v, w, u, state0, pos, state_scale=scale0)
+    torch.cuda.synchronize()
+    assert k.launches == n0 + 1 and y.dtype == torch.float32 and st.dtype == state_dtype
+    yw, stw, scw = k.wkv_scan_plain(r, kk, v, w, u, state0, pos, state_scale=scale0)
+    _close(y, yw, 1e-4)
+    assert torch.equal(st[1], state0[1])
+    if state_dtype == torch.int8:
+        assert (st.int() - stw.int()).abs().max().item() <= 1
+        assert ((sc - scw).abs() / scw).max().item() <= 1e-5
+        assert torch.equal(sc[1], scale0[1])
+    else:
+        _close(st, stw, 1e-4)
+    n = s // 3
+    if s > 1 and n > 1 and state_dtype == torch.float32:
+        sl = slice(2, 3)
+        _, st_n, _ = k.wkv_scan(r[sl, :n].contiguous(), kk[sl, :n].contiguous(),
+                                v[sl, :n].contiguous(), w[sl, :n].contiguous(), u,
+                                state0[sl].contiguous(), pos[sl, :n].contiguous())
+        assert torch.equal(st[2], st_n[0])
+
+
+def test_tied_tt_unembed_on_card(dev):
+    """A tied TT embedding's logits (llama2-7b's embed spec, bf16 cores, f32
+    x) through the tt_linear kernel against the plain version: f32 stages in
+    both, 1e-4 of max|want|."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import tt_linear as k
+    from repro_torch.models.modules import embed_spec, init_embed
+    from repro_torch.models.transformer import logits_from_hidden
+    cfg = get_config("llama2-7b")
+    cfg = cfg.replace(tie_embeddings=True, ttd=dataclasses.replace(cfg.ttd, embed=True))
+    g = torch.Generator(device=dev).manual_seed(7)
+    params = {"embed": init_embed(cfg, torch.bfloat16, generator=g, device=dev)}
+    x = torch.randn(2, 5, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    n0 = k.launches
+    got = logits_from_hidden(params, cfg, x)
+    torch.cuda.synchronize()
+    assert k.launches == n0 + embed_spec(cfg).tt.d
+    with dispatch.force_plain():
+        want = logits_from_hidden(params, cfg, x)
+    assert got.dtype == torch.float32 and got.shape == (2, 5, cfg.vocab_size)
+    _close(got, want, 1e-4)

@@ -12,7 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.models import griffin as jgriffin
+from repro.models import rwkv as jrwkv
 from repro.models import transformer as jtf
+
+_INITS = {"griffin": jgriffin.init_lm, "rwkv": jrwkv.init_lm}
 
 
 def _fill(name: str, in_cores: bool, shape, cfg, rng):
@@ -27,6 +30,14 @@ def _fill(name: str, in_cores: bool, shape, cfg, rng):
         return 0.1 * rng.standard_normal(shape)
     if name == "lambda":  # RG-LRU decay: a = exp(-8 softplus(lambda) r) in ~0.6-0.99,
         return rng.uniform(-6.0, -2.0, shape)  # a memory of tens of steps
+    if name.startswith("mu"):  # rwkv token-shift mixing coefficients
+        return rng.uniform(0.2, 0.8, shape)
+    if name == "decay_w0":  # rwkv decay w = exp(-exp(w0 + ...)): ~0.99 down to ~0.007
+        return rng.uniform(-5.0, 1.6, shape)
+    if name == "bonus_u":
+        return 0.5 * rng.standard_normal(shape)
+    if name in ("mix_w1", "mix_w2", "decay_w1", "decay_w2"):  # rwkv LoRAs: small offsets
+        return 0.3 * rng.standard_normal(shape) / np.sqrt(shape[-2])
     if in_cores:  # per-stage variance ~constant: std = 1/sqrt(contraction rows)
         return rng.standard_normal(shape) / np.sqrt(shape[-2])
     fan = shape[-1] if name == "table" else shape[-2]  # table (V, D); w (…, in, out)
@@ -35,8 +46,8 @@ def _fill(name: str, in_cores: bool, shape, cfg, rng):
 
 def jax_params(cfg, seed=0):
     """Seeded JAX param tree with ``init_lm``'s structure, shapes and dtypes
-    (the dense transformer's or griffin's, by the config's family)."""
-    init = jgriffin.init_lm if cfg.family == "griffin" else jtf.init_lm
+    (the dense transformer's, griffin's or rwkv's, by the config's family)."""
+    init = _INITS.get(cfg.family, jtf.init_lm)
     shapes = jax.eval_shape(partial(init, cfg=cfg), jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
     leaves, treedef = jax.tree_util.tree_flatten_with_path(shapes)
