@@ -270,29 +270,43 @@ def init_session_state(cfg: ModelConfig, batch: int, cache_dtype=torch.float32, 
     return init_state(cfg, batch, cache_dtype, device=device)
 
 
+def session_layer(p, specs, cfg: ModelConfig, x, st, compute_dtype, positions):
+    """One layer of a session step: ``apply_block`` on the layer's state
+    ``st`` with its token-shift tails in f32.  ``st`` is updated in place:
+    it takes the new wkv tensors, and the tails are copied back in their
+    stored dtype.  Returns x."""
+    f32 = {k: (t.to(torch.float32) if k in ("x_tm", "x_cm") else t) for k, t in st.items()}
+    x, new = apply_block(p, specs, cfg, x, f32, compute_dtype, positions=positions)
+    st["wkv"] = new["wkv"]
+    if "wkv_scale" in new:
+        st["wkv_scale"] = new["wkv_scale"]
+    st["x_tm"].copy_(new["x_tm"])
+    st["x_cm"].copy_(new["x_cm"])
+    return x
+
+
+def session_logits(params, cfg: ModelConfig, x, logit_cols=None):
+    """Final norm and head: logits (B, C, V) f32, or (B, V) at column
+    ``logit_cols[b]`` of each row when given."""
+    x = apply_norm(params["final_norm"], x)
+    if logit_cols is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), logit_cols]
+    return unembed(x, head_weight(params, cfg).T, dt(cfg.compute_dtype))
+
+
 def prefill_session_chunk(params, cfg: ModelConfig, state, tokens, positions,
                           logit_cols=None):
     """One chunk of batched prefill: tokens (B, C), positions (B, C) (-1 =
     padding).  Returns logits (B, C, V) f32, or (B, V) at column
     ``logit_cols[b]`` of each row when given, and the state, updated in
-    place: each layer's dict takes the new wkv tensors, and the token-shift
-    tails are copied back in their stored dtype."""
+    place layer by layer (``session_layer``)."""
     compute_dtype = dt(cfg.compute_dtype)
     x = embed_lookup(params["embed"], tokens, compute_dtype)
     positions = positions.to(torch.int32).contiguous()
     specs = rwkv_specs(cfg)
     for p, st in zip(params["blocks"], state):
-        f32 = {k: (t.to(torch.float32) if k in ("x_tm", "x_cm") else t) for k, t in st.items()}
-        x, new = apply_block(p, specs, cfg, x, f32, compute_dtype, positions=positions)
-        st["wkv"] = new["wkv"]
-        if "wkv_scale" in new:
-            st["wkv_scale"] = new["wkv_scale"]
-        st["x_tm"].copy_(new["x_tm"])
-        st["x_cm"].copy_(new["x_cm"])
-    x = apply_norm(params["final_norm"], x)
-    if logit_cols is not None:
-        x = x[torch.arange(x.shape[0], device=x.device), logit_cols]
-    return unembed(x, head_weight(params, cfg).T, compute_dtype), state
+        x = session_layer(p, specs, cfg, x, st, compute_dtype, positions)
+    return session_logits(params, cfg, x, logit_cols), state
 
 
 def decode_session_step(params, cfg: ModelConfig, state, tokens, positions):

@@ -21,6 +21,8 @@ neighbour after the 2nd chunk, and the 4th chunk's logits then differ by up
 to 3.4e-3 (the 1st and 2nd by < 6e-6).  The final int8 state is held within
 one int8 step, its scales at 2e-4.
 """
+import gc
+import weakref
 from functools import partial
 
 import jax
@@ -279,6 +281,25 @@ def test_engine_tokens_match_repro_engine():
         for key in ("wkv", "x_tm", "x_cm"):
             np.testing.assert_allclose(layer[key].numpy(), np.asarray(jeng.state[key][i]),
                                        **TOL)
+
+
+def test_dropped_engine_is_freed_without_the_cycle_collector():
+    """An Engine that has served holds no reference cycle: dropping it frees
+    its session state (on the card, its wkv matrices) at once."""
+    s = _setup()
+    eng = TEngine(s["tcfg"], s["tparams"], device="cpu", slots=2, max_len=40, prefill_chunk=8)
+    for n in (5, 12, 3):
+        eng.submit(list(range(1, n + 1)), max_tokens=3)
+    eng.run()
+    gone = weakref.ref(eng)
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        del eng
+        assert gone() is None
+    finally:
+        if was_enabled:
+            gc.enable()
 
 
 def test_rwkv_entry_points_need_cuda_unless_cpu(monkeypatch):
