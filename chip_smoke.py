@@ -222,10 +222,18 @@ class Smoke:
         del eye, w
         nbytes = 2 * (x.numel() + b * spec.n_out + sum(c.numel() for c in cores)
                       + (b * spec.n_out if "residual" in epi else 0))
+        # the operations of the cheapest contraction order (the staged order
+        # at llama2 gate/up, a two-half split elsewhere)
+        orders = k.tt_order_flops(spec)
+        order = min(orders, key=orders.get)
+        plan = k.contraction_plan(spec)
         self.record("tt_linear", f"{arch} {role} B={b}", got, want, 3e-2,
-                    "bf16: both round each of the 4 stages to bf16, summing in different orders",
+                    f"bf16: the plain version rounds each of the {spec.d} stages to bf16, the "
+                    f"kernel its operators and its one intermediate (plan h={plan.h} "
+                    f"{'left' if plan.left_first else 'right'} first); bound by the {order} "
+                    f"order, {orders[order] / 1e6:.2f} MFLOP a token",
                     ms, plain_ms, lib_ms, "torch.matmul, dense reconstructed W",
-                    nbytes, b * spec.flops_per_token())
+                    nbytes, b * orders[order])
 
     def int4_phase(self, k_in, m, b):
         torch = self.torch

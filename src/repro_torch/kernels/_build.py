@@ -30,10 +30,12 @@ F = ctypes.c_float
 # C entry points and their argument types (see each .cu file's extern "C").
 SIGNATURES = {
     "rt_tt_linear": [P, I, P, P, P, P, P, P, P, P, I, I, P, P, P, I, P],
+    "rt_tt_linear_fused": [P] * 7 + [I, I, P, P, P, I, I, I, P],
     "rt_int4_matmul": [P] * 7 + [I] * 5 + [P],
     "rt_paged_decode_attention": [P] * 8 + [I] * 7 + [F, I, I, P],
     "rt_paged_prefill_attention": [P] * 8 + [I] * 8 + [F, I, I, P],
     "rt_ring_prefill_attention": [P] * 8 + [I] * 7 + [F, I, I, P],
+    "rt_ring_decode_attention": [P] * 9 + [I] * 6 + [F, I, I, I, P],
     "rt_rglru_scan": [P] * 6 + [I] * 4 + [P],
     "rt_tt_embed": [P, P, I, P, I, I, P, P, P, I, I, I, P],
     "rt_wkv_scan": [P] * 11 + [I] * 7 + [P],

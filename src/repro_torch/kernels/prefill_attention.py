@@ -2,7 +2,8 @@
 
 ``prefill_attention`` (paged pool, ``csrc/prefill_attention.cu``) and
 ``ring_attention`` (per-slot rings with explicit key positions,
-``csrc/ring_attention.cu``; it also serves ring decode, Sq = 1) run their
+``csrc/ring_attention.cu``: a flash kernel for Sq > 1, a split-KV pass and
+a combine pass for ring decode, Sq = 1) run their
 CUDA kernel on a CUDA tensor and the plain masked-softmax version on a CPU
 tensor.  Together they replace both layouts of
 ``repro/kernels/prefill_attention.py::prefill_attention_pallas``.  Each
@@ -19,7 +20,7 @@ from .paged_attention import check_paged_args, paged_attention_plain, ring_atten
 
 launches = 0
 plain_cuda_calls = 0
-ring_launches = 0
+ring_launches = 0  # 1 a prefill call, 2 a decode call (split pass and combine)
 ring_plain_cuda_calls = 0
 
 
@@ -115,6 +116,12 @@ def check_ring_args(q, k, v, qpos, kpos, k_scale, v_scale) -> bool:
     return quantized
 
 
+def decode_splits(b: int, wr: int, hkv: int) -> int:
+    """Splits of the ring for decode: enough CTAs (B x Hkv x splits) for
+    three an SM of the H100's 132, at least 64 entries (one tile) a split."""
+    return max(1, min(-(-wr // 64), -(-3 * 132 // (b * hkv))))
+
+
 def _ring_attention_cuda(q, qpos, k, v, kpos, window, sm_scale, k_scale, v_scale):
     global ring_launches
     quantized = check_ring_args(q, k, v, qpos, kpos, k_scale, v_scale)
@@ -122,16 +129,26 @@ def _ring_attention_cuda(q, qpos, k, v, kpos, window, sm_scale, k_scale, v_scale
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out
-    err = _build.lib().rt_ring_prefill_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        _build.ptr(k_scale) if quantized else None,
-        _build.ptr(v_scale) if quantized else None,
-        kpos.data_ptr(), qpos.data_ptr(), out.data_ptr(),
-        b, sq, h, k.shape[2], dh, k.shape[1], int(window),
-        float(sm_scale or (1.0 / math.sqrt(dh))), _build.dtype_code(q),
-        _build.dtype_code(k), _build.stream(q))
+    wr, hkv = k.shape[1], k.shape[2]
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _build.ptr(k_scale) if quantized else None,
+            _build.ptr(v_scale) if quantized else None,
+            kpos.data_ptr(), qpos.data_ptr(), out.data_ptr())
+    scale = float(sm_scale or (1.0 / math.sqrt(dh)))
+    codes = (_build.dtype_code(q), _build.dtype_code(k))
+    if sq == 1:  # decode: the split-KV pass, then the combine
+        splits = decode_splits(b, wr, hkv)
+        part = torch.empty(b * h * splits * (dh + 2), dtype=torch.float32, device=q.device)
+        err = _build.lib().rt_ring_decode_attention(
+            *args, part.data_ptr(), b, h, hkv, dh, wr, int(window), scale, *codes, splits,
+            _build.stream(q))
+        n = 2
+    else:
+        err = _build.lib().rt_ring_prefill_attention(
+            *args, b, sq, h, hkv, dh, wr, int(window), scale, *codes, _build.stream(q))
+        n = 1
     _build.check(err, "ring_attention")
-    ring_launches += 1
+    ring_launches += n
     return out
 
 

@@ -1,17 +1,22 @@
-"""TT-linear: the staged Eq.-4 contraction with the fused epilogue.
+"""TT-linear: the Eq.-4 contraction with the fused epilogue.
 
-``tt_linear`` runs the CUDA kernel (``csrc/tt_linear.cu``, one launch per
-stage, all issued by one C call) on a CUDA tensor and the plain version on a
-CPU tensor.  Replaces ``repro/kernels/tt_linear.py::tt_linear_pallas``.  The
-plain version mirrors ``repro``'s ``ref`` path: each stage is stored in the
-input dtype and multiplied in f32.  The kernel does the same for bf16
-(tensor cores, bf16 intermediates) and keeps f32 intermediates otherwise.
+``tt_linear`` runs the CUDA kernels (``csrc/tt_linear.cu``) on a CUDA tensor
+and the plain version on a CPU tensor.  Replaces
+``repro/kernels/tt_linear.py::tt_linear_pallas``.  The plain version mirrors
+``repro``'s ``ref`` path: each stage is stored in the input dtype and
+multiplied in f32.  bf16 input and cores take the fused route: the cores
+split at the mode ``contraction_plan`` picks into two halves, each half
+contracted into one operator (a first launch), then one kernel contracts x
+with both halves on the tensor cores, rounding its one intermediate to bf16
+on chip (a second launch).  Any f32 operand takes the staged route: one
+launch per core, f32 intermediates in a per-call scratch buffer.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -20,7 +25,7 @@ from ..core.ttd import TTSpec
 from . import _build
 from .epilogue import ACT_CODES, apply_epilogue
 
-launches = 0          # kernel launches (one per stage)
+launches = 0          # kernel launches (2 a bf16 call, one per core an f32 call)
 plain_cuda_calls = 0  # plain-version calls that were handed CUDA tensors
 
 
@@ -39,11 +44,73 @@ def _int_array(vals):
     return (ctypes.c_int * len(vals))(*vals)
 
 
+@dataclass(frozen=True)
+class Plan:
+    """A split of the cores at ``h``: the left half (modes 1..h) has ``nl``
+    inputs and ``ml`` outputs, the right half ``nr`` and ``mr``, joined by
+    the rank ``rank`` = r_h; ``left_first`` says which half meets x first."""
+
+    h: int
+    left_first: bool
+    nl: int
+    nr: int
+    ml: int
+    mr: int
+    rank: int
+
+    @property
+    def flops(self) -> int:
+        """Operations a token: with X the token's (nl, nr) view of x,
+        sum_rho A_rho X B_rho with A_rho (ml, nl) and B_rho (nr, mr)."""
+        if self.left_first:
+            return 2 * self.rank * self.ml * self.nr * (self.nl + self.mr)
+        return 2 * self.rank * self.nl * self.mr * (self.nr + self.ml)
+
+
+def _split(spec: TTSpec, h: int, left_first: bool) -> Plan:
+    n, m = spec.in_modes, spec.out_modes
+    return Plan(h, left_first, math.prod(n[:h]), math.prod(n[h:]), math.prod(m[:h]),
+                math.prod(m[h:]), spec.ranks[h])
+
+
+def _splits(spec: TTSpec) -> list[Plan]:
+    """Every split with either half first; d = 1 has the one split h = 1
+    (an empty right half)."""
+    hs = range(1, spec.d) if spec.d > 1 else (1,)
+    return [_split(spec, h, left) for h in hs for left in (True, False)]
+
+
+@functools.lru_cache(maxsize=None)
+def contraction_plan(spec: TTSpec) -> Plan:
+    """The split the fused kernel contracts by: the fewest operations (the
+    first such split, left first, on a tie)."""
+    return min(_splits(spec), key=lambda p: p.flops)
+
+
+def tt_order_flops(spec: TTSpec) -> dict[str, int]:
+    """Operations a token of each contraction order: the staged order left
+    to right (``TTSpec.flops_per_token``) and right to left, and every split
+    ``h`` with either half first."""
+    rev = TTSpec(spec.in_modes[::-1], spec.out_modes[::-1], spec.ranks[::-1])
+    out = {"staged left to right": spec.flops_per_token(),
+           "staged right to left": rev.flops_per_token()}
+    for p in _splits(spec):
+        out[f"h={p.h} {'left' if p.left_first else 'right'} first"] = p.flops
+    return out
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 @functools.lru_cache(maxsize=None)
 def _spec_info(spec: TTSpec):
-    """ctypes mode/rank arrays, core shapes and the largest per-token intermediate."""
+    """ctypes mode/rank arrays, core shapes, the largest per-token
+    intermediate (staged route), the plan and its operators' element count."""
+    plan = contraction_plan(spec)
+    op_elems = plan.rank * (plan.ml * _pad16(plan.nl) + plan.mr * _pad16(plan.nr))
     return (_int_array(spec.in_modes), _int_array(spec.out_modes), _int_array(spec.ranks),
-            spec.core_matrix_shapes(), spec.max_intermediate())
+            spec.core_matrix_shapes(), spec.max_intermediate(), plan, op_elems)
 
 
 def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
@@ -52,7 +119,7 @@ def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
         raise TypeError(f"tt_linear kernel takes f32/bf16 input, got {x.dtype}")
     if x.shape[-1] != spec.n_in or not x.is_contiguous():
         raise ValueError(f"x must be contiguous (…, {spec.n_in}); got {tuple(x.shape)}")
-    in_m, out_m, ranks, shapes, max_inter = _spec_info(spec)
+    in_m, out_m, ranks, shapes, max_inter, plan, op_elems = _spec_info(spec)
     if len(cores) != spec.d:
         raise ValueError(f"expected {spec.d} cores, got {len(cores)}")
     for c, shp in zip(cores, shapes):
@@ -62,7 +129,11 @@ def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
                              f"got {tuple(c.shape)} {c.dtype}")
     lead = x.shape[:-1]
     b = math.prod(lead)
-    if b * max(max_inter, spec.n_out) >= 2 ** 31:
+    # bf16 x and cores take the fused route
+    fused = x.dtype == torch.bfloat16 and all(c.dtype == torch.bfloat16 for c in cores)
+    if fused and (spec.d > 8 or max(spec.ranks) > 32):
+        raise ValueError(f"the fused kernel takes d <= 8 and ranks <= 32; got {spec}")
+    if b * max(spec.n_in, spec.n_out, 0 if fused else max_inter) >= 2 ** 31:
         raise ValueError(f"{b} tokens overflow the kernel's 32-bit offsets")
     out = torch.empty(*lead, spec.n_out, dtype=x.dtype, device=x.device)
     if b == 0:
@@ -73,13 +144,20 @@ def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
             raise ValueError("residual must be contiguous, shaped and typed like the output")
     scale = _build.epilogue_vector(scale, spec.n_out, "scale")
     bias = _build.epilogue_vector(bias, spec.n_out, "bias")
-    # bf16 x and cores run the tensor-core path with bf16 intermediates
-    mma = x.dtype == torch.bfloat16 and all(c.dtype == torch.bfloat16 for c in cores)
-    scratch = torch.empty(2, b * max_inter if spec.d > 1 else 0,
-                          dtype=torch.bfloat16 if mma else torch.float32, device=x.device)
+    core_ptrs = (ctypes.c_void_p * spec.d)(*[c.data_ptr() for c in cores])
+    if fused:
+        ops = torch.empty(op_elems, dtype=torch.bfloat16, device=x.device)
+        err = _build.lib().rt_tt_linear_fused(
+            x.data_ptr(), core_ptrs, ops.data_ptr(), out.data_ptr(), _build.ptr(scale),
+            _build.ptr(bias), _build.ptr(residual), b, spec.d, in_m, out_m, ranks, plan.h,
+            int(plan.left_first), ACT_CODES[activation], _build.stream(x))
+        _build.check(err, "tt_linear")
+        launches += 2  # the operator pass and the fused contraction
+        return out
+    scratch = torch.empty(2, b * max_inter if spec.d > 1 else 0, dtype=torch.float32,
+                          device=x.device)
     err = _build.lib().rt_tt_linear(
-        x.data_ptr(), _build.dtype_code(x),
-        (ctypes.c_void_p * spec.d)(*[c.data_ptr() for c in cores]),
+        x.data_ptr(), _build.dtype_code(x), core_ptrs,
         _int_array([_build.dtype_code(c) for c in cores]),
         scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(),
         _build.ptr(scale), _build.ptr(bias), _build.ptr(residual), b, spec.d,

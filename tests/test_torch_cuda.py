@@ -4,8 +4,9 @@ Marked ``cuda``: each test skips (with its reason) where there is no CUDA
 device or no ``nvcc``, decided inside the test.  On a machine with an H100:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances: the linear kernels take 1e-4 (f32 inputs: summation order only)
-or 2e-2 / 1e-2 (bf16 inputs: bf16 output rounding, and the TT kernel keeps
-f32 stages where the plain version rounds each to bf16) of max|want| over
+or 2e-2 / 1e-2 (bf16 inputs: bf16 output rounding, and the TT kernel rounds
+its operators and its one intermediate to bf16 where the f32 reference keeps
+f32) of max|want| over
 the output, whose rows all share one scale.  Attention rows do not (a row
 at position 0 returns one value row, a row over many keys an average far
 smaller), so attention is held element by element against its own row:
@@ -57,11 +58,16 @@ def _close_rows(got, want, atol, rtol):
     ((16, 8, 8, 4), (4, 8, 8, 16), 16),     # llama2 attn_o
     ((16, 8, 8, 4), (4, 4, 16, 43), 16),    # llama2 gate/up
     ((107, 8, 4, 4), (8, 8, 8, 8), 16),     # chatglm3 down
+    ((8, 8, 8, 5), (12, 10, 8, 8), 16),     # recurrentgemma-2b gate/up (left first)
+    ((12, 10, 8, 8), (8, 8, 8, 5), 16),     # recurrentgemma-2b down (right first)
+    ((8, 8, 8, 8), (16, 14, 8, 8), 16),     # rwkv6-7b cm_key (right first, Ms 224)
     ((8, 4, 2), (3, 5, 7), 4),
     ((24,), (10,), 1),
 ])
 @pytest.mark.parametrize("b", [1, 7, 130])
 def test_tt_linear_kernel(dev, modes, dtype, b):
+    """bf16 takes the fused route (the operator pass and the two-half
+    contraction: 2 launches), f32 the staged one (a launch per core)."""
     from repro_torch.core.ttd import TTSpec
     from repro_torch.kernels import tt_linear as k
     spec = TTSpec.make(0, 0, modes[2], d=len(modes[0]), in_modes=modes[0], out_modes=modes[1])
@@ -75,7 +81,7 @@ def test_tt_linear_kernel(dev, modes, dtype, b):
                dict(activation="gelu", residual=res)):
         n0 = k.launches
         got = k.tt_linear(x, cores, spec, **kw)
-        assert k.launches == n0 + spec.d
+        assert k.launches == n0 + (2 if dtype == torch.bfloat16 else spec.d)
         want = k.tt_linear_ref(x.float(), [c.float() for c in cores], spec,
                                **{a: (v.float() if torch.is_tensor(v) else v)
                                   for a, v in kw.items()})
@@ -183,12 +189,45 @@ def test_ring_attention_kernel(dev, sq, window, h, hkv, dh, qdt, kvdt):
     n0 = pf.ring_launches
     got = pf.ring_attention(q, qpos, **kw)
     torch.cuda.synchronize()
-    assert pf.ring_launches == n0 + 1
+    assert pf.ring_launches == n0 + (2 if sq == 1 else 1)  # decode: split pass + combine
     want = pf.ring_attention_plain(q.float(), ring["k"], ring["v"], qpos, ring["kpos"],
                                    window=window, k_scale=ring.get("k_scale"),
                                    v_scale=ring.get("v_scale"))
     _close_rows(got, want, *((1e-4, 1e-4) if qdt == torch.float32 else (2.0 ** -6, 2.0 ** -6)))
     assert not got[qpos < 0].any()
+
+
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16),
+                                      (torch.bfloat16, torch.int8)])
+@pytest.mark.parametrize("h,hkv,dh", [(10, 1, 256), (4, 4, 128), (8, 2, 64)])
+@pytest.mark.parametrize("window", [0, 2048])
+@pytest.mark.parametrize("fill,qpos", [((3000, 1200), (2999, -1)),   # wrapped, idle slot
+                                       ((700, 2500), (699, 2499))])  # short, just wrapped
+def test_ring_decode_kernel_many_splits(dev, fill, qpos, window, h, hkv, dh, qdt, kvdt):
+    """Decode (Sq = 1) at recurrentgemma-2b's ring width, WR 2304, B 2: 36
+    splits of 64 entries.  Splits past a short ring's 700 entries are empty,
+    and with the window the wrapped ring's entries holding positions
+    696..951 (four whole splits) are masked."""
+    from repro_torch.kernels import prefill_attention as pf
+    g = torch.Generator(device=dev).manual_seed(h + window + fill[0])
+    wr = 2304
+    ring = _ring(2, wr, hkv, dh, kvdt, dev, g, fill)
+    q = torch.randn(2, 1, h, dh, generator=g, device=dev).to(qdt)
+    qp = torch.tensor(qpos, dtype=torch.int32, device=dev)[:, None].contiguous()
+    kw = dict(k=ring["k"], v=ring["v"], kpos=ring["kpos"], window=window,
+              k_scale=ring.get("k_scale"), v_scale=ring.get("v_scale"))
+    assert pf.decode_splits(2, wr, hkv) == 36
+    n0 = pf.ring_launches
+    got = pf.ring_attention(q, qp, **kw)
+    torch.cuda.synchronize()
+    assert pf.ring_launches == n0 + 2
+    want = pf.ring_attention_plain(q.float(), ring["k"], ring["v"], qp, ring["kpos"],
+                                   window=window, k_scale=ring.get("k_scale"),
+                                   v_scale=ring.get("v_scale"))
+    _close_rows(got, want, *((1e-4, 1e-4) if qdt == torch.float32 else (2.0 ** -6, 2.0 ** -6)))
+    assert torch.isfinite(got.float()).all()
+    assert not got[qp[:, 0] < 0].any()
 
 
 @pytest.mark.parametrize("scan_dtype", [torch.float32, torch.bfloat16])
