@@ -25,9 +25,9 @@ then:
    b. the serve phase — the continuous-batching ``Engine`` serving those 8
       requests (random weights from a seed), with every kernel's launch
       counter reset just before and read just after;
-   c. a profile of decode steps (and, for griffin and rwkv, of one prefill
-      chunk): wall time against device kernel time (``torch.profiler``), the
-      device's busy share, the top kernels and each hand kernel's time.
+   c. a profile of decode steps and of one prefill chunk: wall time against
+      device kernel time (``torch.profiler``), the device's busy share, the
+      top kernels and each hand kernel's time.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  It exits
@@ -778,13 +778,12 @@ class Smoke:
         print(f"[serve {path}] checks: {checks}", flush=True)
         return launches
 
-    # -- decode-step profile ---------------------------------------------------
-    def profile(self, cfg, params, card, max_len, path, steps: int = 5,
-                with_chunk: bool = False):
+    # -- decode-step and prefill-chunk profile ----------------------------------
+    def profile(self, cfg, params, card, max_len, path, steps: int = 5):
         """Wall time vs device kernel time of full-width decode steps (8 slots
-        at ~1 K context) and, with ``with_chunk``, of one 256-token prefill
-        chunk for all 8 slots: the device's busy share, the top kernels and
-        each hand kernel's device time."""
+        at ~1 K context) and of one 256-token prefill chunk for all 8 slots:
+        the device's busy share, the top kernels and each hand kernel's
+        device time."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         sess, state = self.session(cfg, max_len)
@@ -831,13 +830,13 @@ class Smoke:
             for i in range(steps):
                 _, state = sess.decode_step(params, state, dtok, dpos + 2 + i)
 
+        def chunk():
+            nonlocal state
+            _, state = sess.prefill_chunk(params, state, toks, pos + 1024 + steps + 2,
+                                          logit_cols=cols)
+
         report("decode step (8 slots, ctx ~1 K)", decode, steps)
-        if with_chunk:
-            def chunk():
-                nonlocal state
-                _, state = sess.prefill_chunk(params, state, toks, pos + 1024 + steps + 2,
-                                              logit_cols=cols)
-            report("prefill chunk (8 slots x 256 tokens at ctx ~1 K)", chunk, 1)
+        report("prefill chunk (8 slots x 256 tokens at ctx ~1 K)", chunk, 1)
         del state
         torch.cuda.empty_cache()
 
@@ -885,6 +884,8 @@ def main() -> int:
     for k_in, m in ((4096, 4096), (4096, 11008), (11008, 4096), (2560, 2560), (2560, 256)):
         for b in (8, 2048):
             s.int4_phase(k_in, m, b)
+    for b in (17, 300):  # the prefill GEMM's edges: one partial token tile, a ragged third
+        s.int4_phase(4096, 4096, b)
     for decode in (True, False):
         for hkv in (32, 2):
             for int8 in (False, True):
@@ -953,8 +954,7 @@ def main() -> int:
         counts = s.serve(cfg, params, card, prompts, max_len, path)
         launches.update({k: counts[k] for k in PATH_KERNELS[path] if k not in launches})
         launches[path] = counts
-        s.profile(cfg, params, card, max_len, path,
-                  with_chunk=cfg.family in ("griffin", "rwkv"))
+        s.profile(cfg, params, card, max_len, path)
     del params
     torch.cuda.empty_cache()
 

@@ -32,12 +32,13 @@ SIGNATURES = {
     "rt_tt_linear": [P, I, P, P, P, P, P, P, P, P, I, I, P, P, P, I, P],
     "rt_tt_linear_fused": [P] * 7 + [I, I, P, P, P, I, I, I, P],
     "rt_int4_matmul": [P] * 7 + [I] * 5 + [P],
+    "rt_int4_unpack": [P, P, I, P],
     "rt_paged_decode_attention": [P] * 8 + [I] * 7 + [F, I, I, P],
     "rt_paged_prefill_attention": [P] * 8 + [I] * 8 + [F, I, I, P],
     "rt_ring_prefill_attention": [P] * 8 + [I] * 7 + [F, I, I, P],
     "rt_ring_decode_attention": [P] * 9 + [I] * 6 + [F, I, I, I, P],
     "rt_rglru_scan": [P] * 6 + [I] * 4 + [P],
-    "rt_tt_embed": [P, P, I, P, I, I, P, P, P, I, I, I, P],
+    "rt_tt_embed": [P, I, P, I, P, I, I, P, P, P, P, I, P],
     "rt_wkv_scan": [P] * 11 + [I] * 7 + [P],
 }
 
@@ -119,6 +120,11 @@ def check(err: int, name: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def int_array(vals):
+    """A ctypes int array of ``vals`` (mode and rank lists for the C side)."""
+    return (ctypes.c_int * len(vals))(*vals)
 
 
 def ptr(t) -> int | None:

@@ -1,8 +1,14 @@
 """w4a16 matmul with the fused epilogue.
 
-``int4_matmul`` runs the CUDA kernel (``csrc/int4_matmul.cu``) on a CUDA
-tensor and the plain version (dequantize to f32, f32 matmul) on a CPU
-tensor.  Replaces ``repro/kernels/int4_matmul.py::int4_matmul_pallas``.
+``int4_matmul`` runs the CUDA kernels (``csrc/int4_matmul.cu``: a GEMV for
+B <= 16 tokens, a warp-specialized TMA + wgmma GEMM above) on a CUDA tensor
+and the plain version (dequantize to f32, f32 matmul) on a CPU tensor.
+Replaces ``repro/kernels/int4_matmul.py::int4_matmul_pallas``.
+
+``unpack_magic`` is the prefill kernel's nibble conversion written in torch
+(no float conversion: the nibble goes into a bf16 mantissa), which the CPU
+tests hold against ``core.quant.unpack_int4``; ``unpack_on_card`` runs the
+kernel's own conversion on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -16,6 +22,19 @@ from .epilogue import ACT_CODES, apply_epilogue
 
 launches = 0
 plain_cuda_calls = 0
+
+_MAGIC = 0x4300  # bf16 128.0: 0x4300 | u is 128 + u for u in [0, 16)
+_MAGIC_BIAS = 136.0  # 128 + 8: u = nibble ^ 8 = q + 8
+
+
+def unpack_magic(packed: torch.Tensor) -> torch.Tensor:
+    """(…, K/2) uint8 -> (…, K) bf16, as the prefill kernel converts: each
+    nibble XOR 8 into the mantissa of bf16 128.0, minus 136 in bf16 (exact:
+    every value is an integer in [-8, 7]).  Low nibble = even k."""
+    p = packed.to(torch.int32) ^ 0x88
+    u = torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-1).reshape(*p.shape[:-1], -1)
+    bits = (u | _MAGIC).to(torch.int16)
+    return bits.view(torch.bfloat16) - torch.tensor(_MAGIC_BIAS, dtype=torch.bfloat16)
 
 
 def int4_matmul_ref(x, qweight, scales, group: int = 128, *, scale=None,
@@ -45,6 +64,8 @@ def _int4_matmul_cuda(x, qweight, scales, group, scale, bias, residual, activati
     if scales.shape != (m, k // group) or scales.dtype != torch.bfloat16 \
             or not scales.is_contiguous() or not scales.is_cuda:
         raise ValueError(f"scales must be contiguous CUDA bf16 {(m, k // group)}")
+    if x.data_ptr() % 16 or qweight.data_ptr() % 16 or scales.data_ptr() % 4:
+        raise ValueError("x and qweight must start 16-byte aligned (TMA), scales 4-byte")
     lead = x.shape[:-1]
     b = math.prod(lead)
     out = torch.empty(*lead, m, dtype=x.dtype, device=x.device)
@@ -62,6 +83,19 @@ def _int4_matmul_cuda(x, qweight, scales, group, scale, bias, residual, activati
         ACT_CODES[activation], _build.stream(x))
     _build.check(err, "int4_matmul")
     launches += 1
+    return out
+
+
+def unpack_on_card(packed: torch.Tensor) -> torch.Tensor:
+    """(rows, 32) uint8 on the card -> (rows, 64) bf16 through the prefill
+    kernel's own nibble conversion (for its card test)."""
+    if packed.dtype != torch.uint8 or packed.dim() != 2 or packed.shape[1] != 32 \
+            or not packed.is_cuda or not packed.is_contiguous():
+        raise ValueError("packed must be a contiguous CUDA (rows, 32) uint8 tensor")
+    out = torch.empty(packed.shape[0], 64, dtype=torch.bfloat16, device=packed.device)
+    _build.check(_build.lib().rt_int4_unpack(packed.data_ptr(), out.data_ptr(),
+                                             packed.shape[0], _build.stream(packed)),
+                 "int4_unpack")
     return out
 
 

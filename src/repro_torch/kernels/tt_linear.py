@@ -40,10 +40,6 @@ def tt_linear_ref(x, cores, spec: TTSpec, scale=None, bias=None, residual=None,
     return y.to(x.dtype)
 
 
-def _int_array(vals):
-    return (ctypes.c_int * len(vals))(*vals)
-
-
 @dataclass(frozen=True)
 class Plan:
     """A split of the cores at ``h``: the left half (modes 1..h) has ``nl``
@@ -109,7 +105,7 @@ def _spec_info(spec: TTSpec):
     intermediate (staged route), the plan and its operators' element count."""
     plan = contraction_plan(spec)
     op_elems = plan.rank * (plan.ml * _pad16(plan.nl) + plan.mr * _pad16(plan.nr))
-    return (_int_array(spec.in_modes), _int_array(spec.out_modes), _int_array(spec.ranks),
+    return (_build.int_array(spec.in_modes), _build.int_array(spec.out_modes), _build.int_array(spec.ranks),
             spec.core_matrix_shapes(), spec.max_intermediate(), plan, op_elems)
 
 
@@ -158,7 +154,7 @@ def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
                           device=x.device)
     err = _build.lib().rt_tt_linear(
         x.data_ptr(), _build.dtype_code(x), core_ptrs,
-        _int_array([_build.dtype_code(c) for c in cores]),
+        _build.int_array([_build.dtype_code(c) for c in cores]),
         scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(),
         _build.ptr(scale), _build.ptr(bias), _build.ptr(residual), b, spec.d,
         in_m, out_m, ranks, ACT_CODES[activation], _build.stream(x))

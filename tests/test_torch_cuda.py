@@ -90,8 +90,13 @@ def test_tt_linear_kernel(dev, modes, dtype, b):
 
 @pytest.mark.parametrize("b,k_in,m,group", [
     (1, 256, 96, 128), (8, 4096, 4096, 128), (8, 11008, 4096, 128),
-    (33, 512, 200, 64), (300, 4096, 11008, 128), (2048, 256, 64, 32)])
+    (33, 512, 200, 64), (300, 4096, 11008, 128), (2048, 256, 64, 32),
+    (17, 4096, 4096, 128), (2047, 4096, 4096, 128), (2048, 2560, 256, 128),
+    (2048, 11008, 4096, 128)])
 def test_int4_matmul_kernel(dev, b, k_in, m, group):
+    """B <= 16 takes the GEMV, B > 16 the wgmma GEMM: a partial token tile
+    (17, 300, 2047), M not a multiple of the 128-row tile (96, 200, 64),
+    K = 11008 (172 steps of 64), groups of 32, 64 and 128."""
     from repro_torch.core.quant import quantize_int4
     from repro_torch.kernels import int4_matmul as k
     g = torch.Generator(device=dev).manual_seed(b)
@@ -105,6 +110,19 @@ def test_int4_matmul_kernel(dev, b, k_in, m, group):
                                  **{a: (v.float() if torch.is_tensor(v) else v)
                                     for a, v in kw.items()})
         _close(got, want, 1e-2)
+
+
+def test_int4_nibble_conversion_all_bytes(dev):
+    """The prefill kernel's conversion (byte gather + magic-number bf16) on
+    all 256 byte values, bit for bit against ``unpack_int4``."""
+    from repro_torch.core.quant import unpack_int4
+    from repro_torch.kernels import int4_matmul as k
+    packed = torch.arange(256, dtype=torch.uint8, device=dev).reshape(8, 32)
+    got = k.unpack_on_card(packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, unpack_int4(packed).to(torch.bfloat16))
+    flipped = packed.flip(0).contiguous()  # each byte value in another lane and word
+    assert torch.equal(k.unpack_on_card(flipped), unpack_int4(flipped).to(torch.bfloat16))
 
 
 def _pool(nb, bs, hkv, dh, dtype, dev, g):
@@ -282,13 +300,16 @@ def test_unembed_logits_in_f32_from_bf16_operands(dev):
     ((8, 8, 8, 8), (20, 16, 10, 10), 16),   # llama2-7b's embed spec (V 32000, D 4096)
     ((4, 4, 2, 2), (4, 4, 4, 4), 16),       # tinyllama reduced at rank 16
     ((4, 4, 4), (8, 8, 4), 4),              # reduced, the CPU tests' spec
+    ((4, 3, 2), (5, 2, 7), 3),              # d = 3, ragged: the scalar product path
     ((24,), (10,), 1),                      # d = 1
 ])
-@pytest.mark.parametrize("t", [1, 8, 2048])
+@pytest.mark.parametrize("t", [1, 8, 2048, 5000])
 def test_tt_embed_kernel(dev, modes, cdtype, t):
     """Element by element at 1e-5 of the row max plus 1e-5 of the element:
-    both are f32 chains of the same products, summed in other orders.  Ids
-    out of range wrap once and clamp as the plain version's do."""
+    both are f32 sums of the same products, in other orders.  Ids out of
+    range wrap once and clamp as the plain version's do; ids on every
+    first-digit boundary (multiples of prod(out_modes[1:]), the id before
+    each, V - 1) follow; T = 5000 is more than one wave of CTAs."""
     from repro_torch.core.ttd import TTSpec
     from repro_torch.kernels import tt_embed as k
     spec = TTSpec.make(0, 0, modes[2], d=len(modes[0]), in_modes=modes[0], out_modes=modes[1])
@@ -298,6 +319,9 @@ def test_tt_embed_kernel(dev, modes, cdtype, t):
     v = spec.n_out
     ids = torch.randint(0, v, (t,), generator=g, device=dev, dtype=torch.int32)
     ids[:4] = torch.tensor([-1, -v - 3, v, v + 7][:t], dtype=torch.int32)
+    step = math.prod(spec.out_modes[1:])
+    edges = [e for i in range(0, v, step) for e in (i, i + step - 1)] + [v - 1]
+    ids[4:4 + len(edges)] = torch.tensor(edges[:max(0, t - 4)], dtype=torch.int32)
     n0 = k.launches
     got = k.tt_embed(ids, cores, spec)
     torch.cuda.synchronize()
