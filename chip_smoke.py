@@ -11,7 +11,9 @@ then:
 1. kernel phases — each kernel against its plain PyTorch version at the
    serving paths' shapes, with its time, the plain version's time, one
    PyTorch library call's time as a yardstick where one exists, and the
-   card's bound;
+   card's bound; each prefill attention phase also prints the key tiles its
+   flash tile walks against the tiles its CTAs would walk without the
+   visible-tile rule;
 2. for each of the four serving paths — llama2-7b (paged K/V),
    recurrentgemma-2b (griffin: RG-LRU state and windowed attention rings),
    llama2-7b-tt-embed (llama2-7b's paged path with its embedding table a
@@ -27,7 +29,7 @@ then:
       counter reset just before and read just after;
    c. a profile of decode steps and of one prefill chunk: wall time against
       device kernel time (``torch.profiler``), the device's busy share, the
-      top kernels and each hand kernel's time.
+      top kernels, each hand kernel's time and the attention kernels' time.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  It exits
@@ -265,9 +267,9 @@ class Smoke:
                     ms, plain_ms, lib_ms, "torch.matmul, dequantized bf16 W",
                     nbytes, 2.0 * b * k_in * m)
 
-    def _pool(self, nb, hkv, int8):
+    def _pool(self, nb, hkv, int8, dh=128):
         torch = self.torch
-        shape = (nb, 16, hkv, 128)
+        shape = (nb, 16, hkv, dh)
         if not int8:
             return {"k": self.randn(*shape, dtype=torch.bfloat16),
                     "v": self.randn(*shape, dtype=torch.bfloat16)}
@@ -279,15 +281,15 @@ class Smoke:
             cache[nm + "_scale"] = sc
         return cache
 
-    def attn_phase(self, decode, hkv, int8, h=32, w=128, sq=256):
+    def attn_phase(self, decode, hkv, int8, h=32, w=128, sq=256, dh=128):
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels import paged_attention as pa
         from repro_torch.kernels import prefill_attention as pf
         np = self.np
-        b, dh, bs = 8, 128, 16
+        b, bs = 8, 16
         nb = 1 + b * w
-        cache = self._pool(nb, hkv, int8)
+        cache = self._pool(nb, hkv, int8, dh)
         bt = (torch.randperm(nb - 1, generator=self.gen, device=self.dev)[:b * w]
               .reshape(b, w).to(torch.int32) + 1)
         if decode:
@@ -328,8 +330,10 @@ class Smoke:
                   + 4 * (-(-ctx // bs)).sum() + 4 * qpos.numel())
         flops = 4.0 * visible.sum() * h * dh
         name = "paged_attention" if decode else "prefill_attention"
-        label = f"{'decode B=8' if decode else f'prefill B=8 Sq={sq}'} H{h}/Hkv{hkv}/Dh128 " \
+        label = f"{'decode B=8' if decode else f'prefill B=8 Sq={sq}'} H{h}/Hkv{hkv}/Dh{dh} " \
                 f"{'int8' if int8 else 'bf16'} pool"
+        if not decode:
+            self.tile_count(name, label, pf.tiles_walked(qpos, h, hkv))
         self.record(name, label, got, want, "rows",
                     "bf16 output rounding; both read the same pool values", ms, plain_ms,
                     lib_ms, "scaled_dot_product_attention on the gathered context",
@@ -342,6 +346,14 @@ class Smoke:
         want_row = want[row:row + 1] if not decode else want[row][None, None]
         self.dropped_keys_check(name, label, q[row:row + 1], k, v, qpos[row:row + 1], kpos,
                                 want_row, int(ctx[row]))
+
+    def tile_count(self, name, label, counts):
+        """The key tiles the flash tile walks in a prefill phase, from the
+        launch's arguments (``tiles_walked``: the same rule as the kernel),
+        against the tiles its CTAs would walk without the rule."""
+        walked, total = counts
+        print(f"[{name}] {label}: {walked} key tiles walked of {total} "
+              f"({walked / max(total, 1):.3f}); the rest skipped unread", flush=True)
 
     def dropped_keys_check(self, name, label, q, k, v, qpos, kpos, want, n_keys, window=0,
                            k_scale=None, v_scale=None):
@@ -416,6 +428,9 @@ class Smoke:
         flops = 4.0 * vis_np.sum() * h * dh
         label = f"{label} B={b} Sq={sq} H{h}/Hkv{hkv}/Dh{dh} WR={wr} window={window} " \
                 f"{'int8' if int8 else 'bf16'} rings, contexts {list(ctx)}"
+        if sq > 1:
+            self.tile_count("ring_attention", label,
+                            pf.tiles_walked(qpos, h, hkv, kpos, window=window))
         self.record("ring_attention", label, got, want, "rows",
                     "bf16 output rounding; both read the same ring values", ms, plain_ms,
                     lib_ms, "scaled_dot_product_attention over the ring with the "
@@ -814,6 +829,8 @@ class Smoke:
             hand = [e for e in events if "flash::" in e.key
                     or ("(anonymous namespace)::" in e.key and "at::" not in e.key)]
             hand_s = sum(e.self_device_time_total for e in hand) / 1e6
+            attn_s = sum(e.self_device_time_total for e in hand if "flash::" in e.key
+                         or "ring_decode" in e.key or "paged_decode" in e.key) / 1e6
             print(f"[profile {path}] {card}: {what} wall {wall / n * 1e3:.2f} ms, device "
                   f"kernel time {device_s / n * 1e3:.2f} ms, device busy share "
                   f"{device_s / wall:.3f}; top kernels per call: "
@@ -824,6 +841,8 @@ class Smoke:
                               for e in sorted(hand, key=lambda e: -e.self_device_time_total))
                   + f"), library and PyTorch kernels {(device_s - hand_s) / n * 1e3:.3f} ms",
                   flush=True)
+            print(f"[profile {path}] {what}: attention kernels {attn_s / n * 1e3:.3f} ms "
+                  f"per call", flush=True)
 
         def decode():
             nonlocal state
@@ -890,6 +909,8 @@ def main() -> int:
         for hkv in (32, 2):
             for int8 in (False, True):
                 s.attn_phase(decode, hkv, int8)
+    for int8 in (False, True):  # the paged layout at head_dim 256 (griffin's attention heads)
+        s.attn_phase(False, 1, int8, h=10, dh=256)
     # recurrentgemma-2b's rings: window 2048 + chunk 256; contexts past one wrap
     rg_ctx = (3000, 2400, 1500, 256, 3900, 700, 0, 2304)
     for sq in (1, 256):
@@ -897,6 +918,9 @@ def main() -> int:
             s.ring_phase("recurrentgemma-2b", sq, 10, 1, 256, 2048, 2304, int8, rg_ctx)
     s.ring_phase("llama2-7b-shaped", 256, 32, 32, 128, 0, 2048, False,
                  (1500, 600, 2048, 256, 0, 1000, 64, 1800))
+    # short contexts: most of each ring is empty and its tiles are skipped
+    s.ring_phase("recurrentgemma-2b short", 256, 10, 1, 256, 2048, 2304, False,
+                 (300, 512, 64, 256, 0, 700, 128, 400))
     for steps in (1, 256):
         s.rglru_phase(steps)
     llama_embed = serve_config_of(get_config("llama2-7b"))

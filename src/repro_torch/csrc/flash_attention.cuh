@@ -1,45 +1,60 @@
 // Flash-attention CTA bodies shared by the paged and the ring layouts of the
 // chunked-prefill kernel (prefill_attention.cu, ring_attention.cu).
 //
-// One CTA per (sequence, tile of 64 query rows, kv head).  A row is a
-// (query position, GQA head) pair of one kv head: 64 positions for G = 1,
-// 4 positions x 16 heads for G = 16, 6 positions x 10 heads (60 rows, 4 left
-// idle) for G = 10, so every K/V tile read from device memory serves up to
-// 64 rows whatever the group size.  K/V stay in device memory and are read
-// one 64-key tile at a time:
+// A row is a (query position, GQA head) pair of one kv head.  Every mask
+// comes from the key's position, never from its index: a key is visible to
+// a row iff kpos >= 0, qpos >= 0, kpos <= qpos and (window == 0 or qpos -
+// kpos < window).  Masking follows kernels/ref.py (-1e30, then x valid after
+// the exp), so a fully masked row writes 0, not NaN.  Keys are read one
+// 64-entry tile at a time:
 //
-// * paged (RING = false): keys are the sequence's positions 0 .. max qpos of
-//   the CTA's rows, read through the block table; entry e holds position e,
-//   so an all-padding tile runs zero iterations;
-// * ring (RING = true): keys are the WR entries of the sequence's ring, in
-//   ring order, which is not position order once the ring has wrapped.  The
-//   trip count is static (WR / 64 tiles); each entry's position comes from
-//   kpos (-1 = empty: never attended, never read).
+// * paged (RING = false): entry e holds position e, read through the block
+//   table; entries past the rows' largest position or the table are empty;
+// * ring (RING = true): the WR entries of the sequence's ring, in ring
+//   order, which is not position order once the ring has wrapped; each
+//   entry's position comes from kpos (-1 = empty: never attended, never
+//   read).
 //
-// Every mask comes from the key's position, never from its index: a key is
-// visible to a row iff kpos >= 0, qpos >= 0, kpos <= qpos and (window == 0
-// or qpos - kpos < window).  Masking follows kernels/ref.py (-1e30, then x
-// valid after the exp), so a fully masked row writes 0, not NaN.
-//
-// bf16 queries over bf16 or int8 K/V run on the tensor cores: 4 warps own 16
-// rows each, S = Q K^T and O += P V are mma.sync m16n8k16 bf16 -> f32 with
-// the probabilities reused from the score registers, and the online softmax
-// runs on the accumulator fragments.  int8 payloads are dequantized with
-// their f32 per-(entry, head) scales into the bf16 tile.  At head_dim 256
-// the O accumulator alone takes 128 registers a thread, so the Q fragments
-// are read from shared memory per key tile instead of being held in
-// registers (head_dim <= 128 keeps them in registers).  Any f32 operand
-// takes an f32 CUDA-core path with the same tiling.
+// bf16 queries over bf16 or int8 K/V take the tensor-core tile (tc_kernel):
+// 128 rows a CTA (GT heads x 128 / GT positions; 12 x 10 = 120 for a group
+// of 10), 8 consumer warps of 16 rows and a producer warpgroup, one warp of
+// which loads; setmaxnreg hands the consumers 232 registers a thread (the
+// 12 warps would otherwise get 168, and head_dim 256 spilled).  CTAs
+// interleave the sequences, the last query tile first, so that a wave mixes
+// long rings and short ones.
+// * Only tiles that hold a key visible to some row are walked.  Paged: the
+//   tiles of [max(0, qmin - window + 1), qmax]; ring: the CTA reads its
+//   sequence's kpos once and keeps a tile iff its smallest non-empty
+//   position is <= qmax and (no window or qmin - its largest < window)
+//   (visible_tiles in kernels/prefill_attention.py is the
+//   same rule).  A warp also skips a walked tile none of its rows can see,
+//   and drops the element mask on a tile every one of its rows sees whole.
+// * The producer warp keeps the next tiles in flight in a 2-3 stage ring of
+//   shared memory (cp.async, zero-filled for empty entries; a paged tile is
+//   gathered block by block through the table), signalled through
+//   mbarriers.  int8 tiles arrive as int8 plus their f32 scales, half the
+//   bytes; the consumers dequantize a tile once into one shared bf16 tile
+//   (value x scale -> bf16, as the plain version rounds), between two
+//   named barriers, while the producer's next loads are in flight.
+// * S = Q K^T and O += P V are mma.sync m16n8k16 bf16 -> f32; fragments come
+//   from ldmatrix (.trans for V, read in its natural row-major layout: no
+//   transposed copy), rows padded by 16 bytes so that every ldmatrix phase
+//   is conflict-free.  P is reused from the score registers; the online
+//   softmax runs on the accumulator fragments in base 2.  Q fragments stay
+//   in registers for head_dim <= 128; at 256 the O accumulator alone takes
+//   128 registers a thread, so they are re-read from shared memory.
+// Any f32 operand takes the f32 CUDA-core path (simt_kernel, 64 rows).
 #pragma once
+
+#include <limits.h>
 
 #include "common.cuh"
 
 namespace flash {
 
-constexpr int RMAX = 64;  // query rows per CTA
+constexpr int RMAX = 64;  // query rows per CTA of the f32 path
 constexpr int KT = 64;    // keys per tile
 constexpr int SIMT_NTH = 256;
-constexpr int MMA_NTH = 128;  // 4 warps x 16 rows
 constexpr float NEG_INF = -1e30f;
 
 struct Args {
@@ -240,11 +255,10 @@ __global__ void __launch_bounds__(SIMT_NTH) simt_kernel(Args a, int nqt, int QT,
   }
 }
 
-// ---- bf16 tensor-core path ------------------------------------------------
-template <int DH>
-constexpr int mma_smem_bytes() {
-  return (RMAX * (DH + 8) + KT * (DH + 8) + DH * (KT + 8)) * 2 + RMAX * 4 + KT * 4;
-}
+// ---- bf16 tensor-core tile --------------------------------------------------
+constexpr int TR = 128;                      // rows a CTA
+constexpr int TC_WARPS = 8;                  // consumer warps, 16 rows each
+constexpr int TC_NTH = (TC_WARPS + 4) * 32;  // + the producer warpgroup (one warp loads)
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -277,171 +291,349 @@ __device__ __forceinline__ void load8_bf16<int8_t>(const int8_t* p, float scale,
   for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16((float)c[j] * scale);
 }
 
+// the consumer warps only
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TC_WARPS * 32) : "memory");
+}
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+// Whether a key in [kmin, kmax] (kmax < 0: none) can be visible to a row in
+// [qmin, qmax] (qmax < 0: none): never false for a visible pair.
+__device__ __forceinline__ bool may_see(int qmin, int qmax, int kmin, int kmax, int window) {
+  return qmax >= 0 && kmax >= 0 && kmin <= qmax && (window <= 0 || qmin - kmax < window);
+}
+
+// Shared-memory layout (byte offsets).  A stage holds one tile as it comes
+// from device memory: bf16 K and V rows padded to RS, or int8 K and V rows
+// with their scales; int8 tiles are dequantized into one bf16 tile (CONV).
+template <int DH, typename TKV>
+struct TcLayout {
+  static constexpr bool I8 = sizeof(TKV) == 1;
+  static constexpr int NS = DH >= 256 ? 2 : 3;  // stages
+  static constexpr int RS = DH + 8;             // padded bf16 row stride
+  static constexpr int TILE = 2 * KT * RS * 2;  // a bf16 K and V tile
+  static constexpr int STAGE = I8 ? 2 * KT * DH + 2 * KT * 4 : TILE;
+  static constexpr int STAGES = TR * RS * 2;    // after Q [TR][RS]
+  static constexpr int CONV = STAGES + NS * STAGE;
+  static constexpr int BARS = CONV + (I8 ? TILE : 0);  // full[NS], empty[NS]
+  static constexpr int KPOS = BARS + 2 * NS * 8;        // [NS][KT] key positions
+  static constexpr int KRANGE = KPOS + NS * KT * 4;     // [NS] tile's min, max, full
+  static constexpr int KROW = KRANGE + NS * 4 * 4;      // [KT] producer: rows of a tile
+  static constexpr int ROWQ = KROW + KT * 4;            // [TR] row positions, then n_list
+  static constexpr int LIST = ROWQ + TR * 4 + 16;       // [WR / KT] the ring's walked tiles
+};
+
 template <int DH, typename TKV, bool RING>
-__global__ void __launch_bounds__(MMA_NTH) mma_kernel(Args a, int nqt, int QT, int GT) {
-  constexpr int QS = DH + 8, KS = DH + 8, VS = KT + 8;  // padded smem row strides
+__global__ void __launch_bounds__(TC_NTH, 1) tc_kernel(Args a, int nqt, int QT, int GT) {
+  using L = TcLayout<DH, TKV>;
+  constexpr int NS = L::NS, RS = L::RS;
   constexpr bool QREG = DH <= 128;  // Q fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [RMAX][QS]
-  __nv_bfloat16* Ks = Qs + RMAX * QS;                                // [KT][KS]
-  __nv_bfloat16* Vt = Ks + KT * KS;                                  // [DH][VS] (transposed)
-  int* row_q = reinterpret_cast<int*>(Vt + DH * VS);                 // [RMAX]
-  int* kp_s = row_q + RMAX;                                          // [KT]
-  __shared__ int n_keys_s;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  unsigned char* stages = smem_raw + L::STAGES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + L::BARS);
+  uint64_t* empty = full + NS;
+  int* kp_s = reinterpret_cast<int*>(smem_raw + L::KPOS);
+  int* kr_s = reinterpret_cast<int*>(smem_raw + L::KRANGE);
+  int* krow = reinterpret_cast<int*>(smem_raw + L::KROW);
+  int* row_q = reinterpret_cast<int*>(smem_raw + L::ROWQ);
+  int* n_list_s = row_q + TR;
+  int* list = reinterpret_cast<int*>(smem_raw + L::LIST);
 
-  const int b = blockIdx.x / nqt, q0 = (blockIdx.x % nqt) * QT;
+  // CTAs interleave the sequences, the last (in the paged layout the
+  // heaviest) query tile first, so that a wave mixes long and short rows
+  const int B = gridDim.x / nqt;
+  const int b = blockIdx.x % B, q0 = (nqt - 1 - blockIdx.x / B) * QT;
   const int kvh = blockIdx.y, g0 = blockIdx.z * GT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int G = a.H / a.Hkv;
-  const int rows = QT * GT;
+  const int G = a.H / a.Hkv, rows = QT * GT;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const TKV* kpool = static_cast<const TKV*>(a.k);
-  const TKV* vpool = static_cast<const TKV*>(a.v);
 
-  for (int r = tid; r < RMAX; r += MMA_NTH) {
-    int qp = -1;
-    const int sq = q0 + r / GT;
-    if (r < rows && sq < a.Sq) qp = a.qpos[(long)b * a.Sq + sq];
-    row_q[r] = qp;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 64);  // 32 producer lanes' cp.async + their 32 plain arrivals
+      mbar_init(&empty[s], TC_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int c = tid; c < RMAX * (DH / 8); c += MMA_NTH) {  // 16-byte chunks of Q rows
+  for (int r = tid; r < TR; r += TC_NTH) {
+    const int sq = q0 + r / GT;
+    row_q[r] = r < rows && sq < a.Sq ? a.qpos[(long)b * a.Sq + sq] : -1;
+  }
+  for (int c = tid; c < TR * (DH / 8); c += TC_NTH) {  // 16-byte chunks of Q rows
     const int r = c / (DH / 8), d = (c % (DH / 8)) * 8;
     const int sq = q0 + r / GT, h = kvh * G + g0 + r % GT;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (r < rows && sq < a.Sq)
       v = *reinterpret_cast<const uint4*>(q + (((long)b * a.Sq + sq) * a.H + h) * DH + d);
-    *reinterpret_cast<uint4*>(Qs + r * QS + d) = v;
+    *reinterpret_cast<uint4*>(Qs + r * RS + d) = v;
   }
   __syncthreads();
-  if (tid == 0) {
-    int mx = -1;
-    for (int r = 0; r < RMAX; ++r) mx = max(mx, row_q[r]);
-    n_keys_s = mx + 1;
+  // the rows' position range, in every warp
+  int qmin = INT_MAX, qmax = -1;
+  for (int r = lane; r < TR; r += 32) {
+    const int p = row_q[r];
+    if (p >= 0) {
+      qmin = min(qmin, p);
+      qmax = max(qmax, p);
+    }
   }
-  __syncthreads();
-  const int n_keys = n_keys_s;
+  qmin = warp_min(qmin);
+  qmax = warp_max(qmax);
 
-  // this warp's 16 rows
+  // the tiles this CTA walks: tile i is list[i] (ring) or t_lo + i (paged)
+  int n_list, t_lo = 0;
+  if constexpr (RING) {
+    const int nt = (a.WR + KT - 1) / KT;
+    for (int t = warp; t < nt; t += TC_NTH / 32) {
+      int kmin = INT_MAX, kmax = -1;
+      for (int j = lane; j < KT; j += 32) {
+        const int e = t * KT + j;
+        const int p = e < a.WR ? a.kpos[(long)b * a.WR + e] : -1;
+        if (p >= 0) {
+          kmin = min(kmin, p);
+          kmax = max(kmax, p);
+        }
+      }
+      kmin = warp_min(kmin);
+      kmax = warp_max(kmax);
+      if (lane == 0) list[t] = may_see(qmin, qmax, kmin, kmax, a.window);
+    }
+    __syncthreads();
+    if (warp == 0) {  // compact the kept tiles' indices in place, in ring order
+      int base = 0;
+      for (int c = 0; c < nt; c += 32) {
+        const int t = c + lane;
+        const bool keep = t < nt && list[t];
+        const unsigned m = __ballot_sync(0xffffffffu, keep);
+        if (keep) list[base + __popc(m & ((1u << lane) - 1))] = t;
+        base += __popc(m);
+      }
+      if (lane == 0) *n_list_s = base;
+    }
+    __syncthreads();
+    n_list = *n_list_s;
+  } else {
+    t_lo = (a.window > 0 ? max(0, qmin - a.window + 1) : 0) / KT;
+    n_list = qmax < 0 ? 0 : qmax / KT - t_lo + 1;
+  }
+
+  if (warp >= TC_WARPS) {  // ---- producer warpgroup: one warp loads --------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp > TC_WARPS) return;
+    const TKV* kpool = static_cast<const TKV*>(a.k);
+    const TKV* vpool = static_cast<const TKV*>(a.v);
+    for (int i = 0; i < n_list; ++i) {
+      const int s = i % NS, e0 = (RING ? list[i] : t_lo + i) * KT;
+      mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
+      int* kp = kp_s + s * KT;
+      int kmin = INT_MAX, kmax = -1, n = 0;
+      for (int j = lane; j < KT; j += 32) {
+        const int e = e0 + j;
+        int p;
+        if (RING) p = e < a.WR ? a.kpos[(long)b * a.WR + e] : -1;
+        else p = e <= qmax && e / a.BS < a.W ? e : -1;
+        kp[j] = p;
+        krow[j] = p >= 0 ? (int)entry_row<RING>(a, b, e, kvh) : -1;
+        if (p >= 0) {
+          kmin = min(kmin, p);
+          kmax = max(kmax, p);
+          ++n;
+        }
+      }
+      kmin = warp_min(kmin);
+      kmax = warp_max(kmax);
+      n = __reduce_add_sync(0xffffffffu, n);
+      if (lane == 0) {
+        kr_s[3 * s] = kmin;
+        kr_s[3 * s + 1] = kmax;
+        kr_s[3 * s + 2] = n == KT;  // no empty entry
+      }
+      __syncwarp();
+      unsigned char* st = stages + s * L::STAGE;
+      if constexpr (!L::I8) {
+        __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(st);
+        __nv_bfloat16* Vs = Ks + KT * RS;
+        for (int c = lane; c < KT * (DH / 8); c += 32) {
+          const int j = c / (DH / 8), d = (c % (DH / 8)) * 8;
+          const int row = krow[j];
+          const long off = (long)max(row, 0) * DH + d;
+          cp16(Ks + j * RS + d, kpool + off, row >= 0);
+          cp16(Vs + j * RS + d, vpool + off, row >= 0);
+        }
+      } else {
+        int8_t* K8 = reinterpret_cast<int8_t*>(st);
+        int8_t* V8 = K8 + KT * DH;
+        float* ksc = reinterpret_cast<float*>(V8 + KT * DH);
+        for (int c = lane; c < KT * (DH / 16); c += 32) {
+          const int j = c / (DH / 16), d = (c % (DH / 16)) * 16;
+          const int row = krow[j];
+          const long off = (long)max(row, 0) * DH + d;
+          cp16(K8 + j * DH + d, kpool + off, row >= 0);
+          cp16(V8 + j * DH + d, vpool + off, row >= 0);
+        }
+        for (int j = lane; j < KT; j += 32) {
+          const int row = krow[j];
+          ksc[j] = row >= 0 ? a.k_scale[row] : 0.f;
+          ksc[KT + j] = row >= 0 ? a.v_scale[row] : 0.f;
+        }
+      }
+      cp_async_arrive(&full[s]);
+      mbar_arrive(&full[s]);  // releases this lane's stores of positions and scales
+      __syncwarp();           // krow is rewritten for the next tile
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // ---- consumer warps: 16 rows each ------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int gid = lane >> 2, tig = lane & 3;
   const int r0 = warp * 16 + gid, r1 = r0 + 8;
   const int qp0 = row_q[r0], qp1 = row_q[r1];
+  int wmin = row_q[warp * 16 + (lane & 15)], wmax = wmin;
+  const bool wfull = __all_sync(0xffffffffu, wmin >= 0);  // no padding row
+  wmin = warp_min(wmin < 0 ? INT_MAX : wmin);
+  wmax = warp_max(wmax);
+  const float sl2 = a.sm_scale * 1.4426950408889634f;  // scores in base 2
+  const __nv_bfloat16* qrow = Qs + (warp * 16 + (lane & 15)) * RS + (lane >> 4) * 8;
   uint32_t qf[QREG ? DH / 16 : 1][4];
   if constexpr (QREG) {
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(Qs + r0 * QS + kk * 16 + tig * 2);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(Qs + r1 * QS + kk * 16 + tig * 2);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(Qs + r0 * QS + kk * 16 + tig * 2 + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(Qs + r1 * QS + kk * 16 + tig * 2 + 8);
-    }
+    for (int kk = 0; kk < DH / 16; ++kk) ldsm_x4(qf[kk], qrow + kk * 16);
   }
-  float o[DH / 8][4] = {};
+  float o[DH / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < DH / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
-  const int n_tiles = n_key_tiles<RING>(a, n_keys);
-  for (int j = 0; j < n_tiles; ++j) {
-    __syncthreads();  // the previous tile's K/V and positions are consumed
-    for (int s = tid; s < KT; s += MMA_NTH) kp_s[s] = entry_pos<RING>(a, b, j * KT + s, n_keys);
-    __syncthreads();
-    for (int c = tid; c < KT * (DH / 8); c += MMA_NTH) {
-      const int s = c / (DH / 8), d = (c % (DH / 8)) * 8;
-      __align__(16) __nv_bfloat16 kv[8];
-      __align__(16) __nv_bfloat16 vv[8];
-      if (kp_s[s] >= 0) {
-        const long row = entry_row<RING>(a, b, j * KT + s, kvh);
-        load8_bf16(kpool + row * DH + d, a.k_scale ? a.k_scale[row] : 1.f, kv);
-        load8_bf16(vpool + row * DH + d, a.v_scale ? a.v_scale[row] : 1.f, vv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) kv[e] = vv[e] = __float2bfloat16(0.f);
+  for (int i = 0; i < n_list; ++i) {
+    const int s = i % NS;
+    mbar_wait(&full[s], (i / NS) & 1);
+    unsigned char* st = stages + s * L::STAGE;
+    const __nv_bfloat16* Kt;
+    if constexpr (L::I8) {
+      __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::CONV);
+      consumer_sync();  // the previous tile's dequantized K and V are consumed
+      const int8_t* K8 = reinterpret_cast<const int8_t*>(st);
+      const float* ksc = reinterpret_cast<const float*>(K8 + 2 * KT * DH);
+#pragma unroll 4
+      for (int c = tid; c < 2 * KT * (DH / 8); c += TC_WARPS * 32) {  // K rows, then V rows
+        const int j = c / (DH / 8), d = (c % (DH / 8)) * 8;
+        __align__(16) __nv_bfloat16 v8[8];
+        load8_bf16(K8 + j * DH + d, ksc[j], v8);
+        *reinterpret_cast<uint4*>(Kb + j * RS + d) = *reinterpret_cast<uint4*>(v8);
       }
-      *reinterpret_cast<uint4*>(Ks + s * KS + d) = *reinterpret_cast<uint4*>(kv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(d + e) * VS + s] = vv[e];
+      consumer_sync();
+      Kt = Kb;
+    } else {
+      Kt = reinterpret_cast<const __nv_bfloat16*>(st);
     }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float sc[KT / 8][4] = {};
+    const __nv_bfloat16* Vt = Kt + KT * RS;
+    const int* kp = kp_s + s * KT;
+    const int kmin = kr_s[3 * s], kmax = kr_s[3 * s + 1];
+    if (may_see(wmin, wmax, kmin, kmax, a.window)) {
+      // every key of the tile visible to every row of the warp: no element mask
+      const bool dense = wfull && kr_s[3 * s + 2] && kmax <= wmin &&
+                         (a.window <= 0 || wmax - kmin < a.window);
+      // S = Q K^T for this warp's 16 rows x 64 keys
+      float sc[KT / 8][4];
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t qa[4];
-      if constexpr (QREG) {
+      for (int nt = 0; nt < KT / 8; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
-      } else {
-        qa[0] = *reinterpret_cast<const uint32_t*>(Qs + r0 * QS + kk * 16 + tig * 2);
-        qa[1] = *reinterpret_cast<const uint32_t*>(Qs + r1 * QS + kk * 16 + tig * 2);
-        qa[2] = *reinterpret_cast<const uint32_t*>(Qs + r0 * QS + kk * 16 + tig * 2 + 8);
-        qa[3] = *reinterpret_cast<const uint32_t*>(Qs + r1 * QS + kk * 16 + tig * 2 + 8);
+        for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t qa[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          ldsm_x4(qa, qrow + kk * 16);
+        }
+#pragma unroll
+        for (int np = 0; np < KT / 16; ++np) {
+          uint32_t bk[4];
+          ldsm_x4(bk, Kt + (np * 16 + ((lane >> 4) << 3) + (lane & 7)) * RS + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+          mma_bf16(sc[2 * np], qa, bk[0], bk[1]);
+          mma_bf16(sc[2 * np + 1], qa, bk[2], bk[3]);
+        }
       }
+      // mask + online softmax on the fragments (rows r0: e = 0, 1; r1: e = 2, 3)
+      float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-      for (int nt = 0; nt < KT / 8; ++nt) {
-        const __nv_bfloat16* kr = Ks + (nt * 8 + gid) * KS + kk * 16 + tig * 2;
-        mma_bf16(sc[nt], qa, *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+      for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok =
+              dense || visible(e < 2 ? qp0 : qp1, kp[nt * 8 + tig * 2 + (e & 1)], a.window);
+          sc[nt][e] = ok ? sc[nt][e] * sl2 : NEG_INF;
+          if (e < 2) mx0 = fmaxf(mx0, sc[nt][e]);
+          else mx1 = fmaxf(mx1, sc[nt][e]);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
-    }
-    // mask + online softmax on the fragments (rows r0: e = 0, 1; r1: e = 2, 3)
-    float mx0 = NEG_INF, mx1 = NEG_INF;
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+      float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt)
+      for (int nt = 0; nt < KT / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = kp_s[nt * 8 + tig * 2 + (e & 1)];
-        const bool ok = visible(e < 2 ? qp0 : qp1, kp, a.window);
-        sc[nt][e] = ok ? sc[nt][e] * a.sm_scale : NEG_INF;
-        if (e < 2) mx0 = fmaxf(mx0, sc[nt][e]);
-        else mx1 = fmaxf(mx1, sc[nt][e]);
+        for (int e = 0; e < 4; ++e) {
+          const float p = sc[nt][e] > 0.5f * NEG_INF ? exp2f(sc[nt][e] - (e < 2 ? mn0 : mn1))
+                                                     : 0.f;
+          sc[nt][e] = p;
+          if (e < 2) sum0 += p;
+          else sum1 += p;
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
       }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float mn = e < 2 ? mn0 : mn1;
-        const float p = sc[nt][e] > 0.5f * NEG_INF ? expf(sc[nt][e] - mn) : 0.f;
-        sc[nt][e] = p;
-        if (e < 2) sum0 += p;
-        else sum1 += p;
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt) {
-      o[dt][0] *= c0;
-      o[dt][1] *= c0;
-      o[dt][2] *= c1;
-      o[dt][3] *= c1;
-    }
-    // O += P V: the score fragments of key tiles 2kk, 2kk+1 are the A operand
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+      l0 = l0 * c0 + sum0;
+      l1 = l1 * c1 + sum1;
+      m0 = mn0;
+      m1 = mn1;
 #pragma unroll
       for (int dt = 0; dt < DH / 8; ++dt) {
-        const __nv_bfloat16* vr = Vt + (dt * 8 + gid) * VS + kk * 16 + tig * 2;
-        mma_bf16(o[dt], pa, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
+        o[dt][0] *= c0;
+        o[dt][1] *= c0;
+        o[dt][2] *= c1;
+        o[dt][3] *= c1;
+      }
+      // O += P V: P from the score registers, V fragments by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                                pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                                pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                                pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+        for (int dt = 0; dt < DH / 16; ++dt) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, Vt + (kk * 16 + (lane & 15)) * RS + dt * 16 + (lane >> 4) * 8);
+          mma_bf16(o[2 * dt], pa, bv[0], bv[1]);
+          mma_bf16(o[2 * dt + 1], pa, bv[2], bv[3]);
+        }
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
@@ -464,9 +656,19 @@ __global__ void __launch_bounds__(MMA_NTH) mma_kernel(Args a, int nqt, int QT, i
 }
 
 // ---- launchers --------------------------------------------------------------
+// Rows of an f32-path CTA share one kv head: GT heads of a group (all of it
+// when G <= 64) times 64 / GT query positions.
+inline int group_tile(int H, int Hkv) {
+  const int G = H / Hkv;
+  const int GT = G < RMAX ? G : RMAX;
+  return G % GT ? -1 : GT;
+}
+
 template <int DH, typename TQ, typename TKV, bool RING>
-int launch_simt(const Args& a, int B, int GT, cudaStream_t st) {
+int launch_simt(const Args& a, int B, cudaStream_t st) {
   constexpr int smem = simt_smem_bytes<DH>();
+  const int GT = group_tile(a.H, a.Hkv);
+  if (GT < 0) return (int)cudaErrorInvalidValue;
   auto kern = simt_kernel<DH, TQ, TKV, RING>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -475,33 +677,46 @@ int launch_simt(const Args& a, int B, int GT, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The tensor-core tile's rows: GT heads, the largest divisor of the group
+// that is at most 128, times 128 / GT positions (kernels/prefill_attention.py
+// row_plan).
+inline int tc_group_tile(int G) {
+  int gt = G < TR ? G : TR;
+  while (G % gt) --gt;
+  return gt;
+}
+
 template <int DH, typename TKV, bool RING>
-int launch_mma(const Args& a, int B, int GT, cudaStream_t st) {
-  constexpr int smem = mma_smem_bytes<DH>();
-  auto kern = mma_kernel<DH, TKV, RING>;
+int launch_tc(const Args& a, int B, cudaStream_t st) {
+  const int list_bytes = RING ? ((a.WR + KT - 1) / KT * 4 + 15) / 16 * 16 : 0;
+  const int smem = TcLayout<DH, TKV>::LIST + list_bytes;
+  auto kern = tc_kernel<DH, TKV, RING>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int QT = RMAX / GT, nqt = (a.Sq + QT - 1) / QT;
-  kern<<<dim3(B * nqt, a.Hkv, (a.H / a.Hkv) / GT), MMA_NTH, smem, st>>>(a, nqt, QT, GT);
+  const int G = a.H / a.Hkv, GT = tc_group_tile(G), QT = TR / GT;
+  const int nqt = (a.Sq + QT - 1) / QT;  // blockIdx.x = (nqt - 1 - query tile) * B + sequence
+  kern<<<dim3(B * nqt, a.Hkv, G / GT), TC_NTH, smem, st>>>(a, nqt, QT, GT);
   return (int)cudaGetLastError();
 }
 
 template <int DH, bool RING>
-int launch_dh(const Args& a, int B, int GT, int q_dtype, int kv_dtype, cudaStream_t st) {
-  if (q_dtype == RT_BF16 && kv_dtype == RT_BF16) return launch_mma<DH, __nv_bfloat16, RING>(a, B, GT, st);
-  if (q_dtype == RT_BF16 && kv_dtype == RT_I8) return launch_mma<DH, int8_t, RING>(a, B, GT, st);
-  if (q_dtype == RT_BF16) return launch_simt<DH, __nv_bfloat16, float, RING>(a, B, GT, st);
-  if (kv_dtype == RT_BF16) return launch_simt<DH, float, __nv_bfloat16, RING>(a, B, GT, st);
-  if (kv_dtype == RT_I8) return launch_simt<DH, float, int8_t, RING>(a, B, GT, st);
-  return launch_simt<DH, float, float, RING>(a, B, GT, st);
+int launch_dh(const Args& a, int B, int q_dtype, int kv_dtype, cudaStream_t st) {
+  if (a.Hkv < 1 || a.H % a.Hkv) return (int)cudaErrorInvalidValue;
+  if (q_dtype == RT_BF16 && kv_dtype == RT_BF16) return launch_tc<DH, __nv_bfloat16, RING>(a, B, st);
+  if (q_dtype == RT_BF16 && kv_dtype == RT_I8) return launch_tc<DH, int8_t, RING>(a, B, st);
+  if (q_dtype == RT_BF16) return launch_simt<DH, __nv_bfloat16, float, RING>(a, B, st);
+  if (kv_dtype == RT_BF16) return launch_simt<DH, float, __nv_bfloat16, RING>(a, B, st);
+  if (kv_dtype == RT_I8) return launch_simt<DH, float, int8_t, RING>(a, B, st);
+  return launch_simt<DH, float, float, RING>(a, B, st);
 }
 
-// Rows per CTA share one kv head: GT heads of a group (all of it when G <= 64)
-// times 64 / GT query positions.
-inline int group_tile(int H, int Hkv) {
-  const int G = H / Hkv;
-  const int GT = G < RMAX ? G : RMAX;
-  return G % GT ? -1 : GT;
+// Sq > 1 of either layout: head_dim 64, 128 or 256.
+template <bool RING>
+int launch(const Args& a, int B, int Dh, int q_dtype, int kv_dtype, cudaStream_t st) {
+  if (Dh == 256) return launch_dh<256, RING>(a, B, q_dtype, kv_dtype, st);
+  if (Dh == 128) return launch_dh<128, RING>(a, B, q_dtype, kv_dtype, st);
+  if (Dh == 64) return launch_dh<64, RING>(a, B, q_dtype, kv_dtype, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace flash

@@ -132,37 +132,7 @@ __device__ __forceinline__ void row_fragments(const uint8_t* seg, uint32_t sel,
   f[2][0] = c[0]; f[2][1] = c[1]; f[3][0] = c[2]; f[3][1] = c[3];
 }
 
-// ---- barriers, TMA, cp.async, wgmma -----------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-// Waits for the phase of parity `parity` to complete.  A pipeline fault
-// would otherwise spin forever: after ~10 s of SM clocks the kernel traps,
-// so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  long long t0 = 0;
-  for (uint32_t spins = 0;; ++spins) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == 0) t0 = clock64();
-    else if ((spins & 0xFFF) == 0 && clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
+// ---- TMA, cp.async, wgmma (barriers: common.cuh) ------------------------------
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
@@ -180,11 +150,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes)
-               : "memory");
-}
-// one arrival on `bar` once this thread's cp.async copies so far have landed
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
                : "memory");
 }
 __device__ __forceinline__ void wgmma_fence() {

@@ -6,14 +6,18 @@
 // largest query position, causal + optional window mask, GQA, int8 dequant.
 //
 // What bounds it on the H100: at the serve shapes (chunk 256 over contexts
-// up to 1.5 K tokens) the operations: ~4 * Sq * ctx * H * Dh FLOP against
-// one read of the context per 64-row query tile.
+// up to 1.5 K tokens) the operations, ~4 * Sq * ctx * H * Dh FLOP against
+// one read of the context per 128-row CTA; in this design the mma.sync rate
+// with the online softmax between the two products of each tile.
 //
-// Design (flash_attention.cuh, RING = false): one CTA per (sequence, tile of
-// 64 (position, GQA head) rows, kv head).  The pool stays in device memory; a
-// CTA reads its sequence's blocks through the block table, 64 keys per tile,
-// for keys 0 .. max qpos of its rows only, so it never reads past the blocks
-// the sequence occupies and an all-padding tile runs zero iterations.
+// Design (flash_attention.cuh, tc_kernel with RING = false): one CTA per
+// (sequence, tile of 128 (position, GQA head) rows, kv head).  The pool stays
+// in device memory; the CTA walks only the key tiles of [max(0, qmin - window
+// + 1), qmax] for its rows' positions, so it never reads past the blocks the
+// sequence occupies, a window skips the keys behind it, and an all-padding
+// CTA walks none.  A producer warp gathers each 64-key tile block by block
+// through the block table with cp.async, two or three tiles ahead of the
+// consumer warps.  Head dims 64, 128 and 256.
 #include "flash_attention.cuh"
 
 extern "C" int rt_paged_prefill_attention(const void* q, const void* k, const void* v,
@@ -24,10 +28,5 @@ extern "C" int rt_paged_prefill_attention(const void* q, const void* k, const vo
                                           void* stream) {
   flash::Args a{q, k, v, (const float*)k_scale, (const float*)v_scale, (const int*)bt, nullptr,
                 (const int*)qpos, out, Sq, H, Hkv, BS, W, 0, window, sm_scale};
-  const int GT = flash::group_tile(H, Hkv);
-  if (GT < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (Dh == 128) return flash::launch_dh<128, false>(a, B, GT, q_dtype, kv_dtype, st);
-  if (Dh == 64) return flash::launch_dh<64, false>(a, B, GT, q_dtype, kv_dtype, st);
-  return (int)cudaErrorInvalidValue;
+  return flash::launch<false>(a, B, Dh, q_dtype, kv_dtype, (cudaStream_t)stream);
 }

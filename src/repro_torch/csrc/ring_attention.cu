@@ -9,18 +9,26 @@
 //
 // What bounds it on the H100.  Prefill, at recurrentgemma-2b's serve shapes
 // (B 8, Sq 256, H 10, Hkv 1, Dh 256, WR 2304 = window 2048 + chunk 256): the
-// operations (~4 * Sq * visible keys * H * Dh FLOP against one 2.4 MB ring
-// read per sequence and query tile).  Decode: the bytes, each sequence's
-// visible ring entries read once (2.4 MB in bf16 for 10 query heads, ~10
-// FLOP a byte), so the whole card has to stream them.
+// operations, ~4 * Sq * visible keys * H * Dh FLOP against one read of the
+// walked part of the ring (2.4 MB in bf16 at most) per 120-row CTA; in this
+// design the mma.sync rate with the online softmax between the two products
+// of each tile.  Decode: the bytes, each sequence's visible ring entries
+// read once (2.4 MB in bf16 for 10 query heads, ~10 FLOP a byte), so the
+// whole card has to stream them.
 //
-// Prefill design (flash_attention.cuh, RING = true): one CTA per (sequence,
-// tile of 64 (position, GQA head) rows, kv head).  A ring that has wrapped is
-// not in position order, so the CTA walks all WR / 64 tiles, loads each
-// entry's position into shared memory with the tile, and masks from those
-// positions alone; empty entries (kpos -1) are neither read nor attended.
-// Head dim 256 needs 104 KB of dynamic shared memory on the tensor-core path
-// and reads Q fragments from shared memory (see flash_attention.cuh).
+// Prefill design (flash_attention.cuh, tc_kernel with RING = true): one CTA
+// per (sequence, tile of 128 (position, GQA head) rows, kv head): 12
+// positions x the 10 heads of recurrentgemma-2b's group, so 22 CTAs read a
+// sequence's ring where 43 did with 64 rows.  A ring that has wrapped is not
+// in position order, so the CTA first reads its sequence's kpos and keeps
+// only the 64-entry tiles holding a key some row can see (by the tile's
+// smallest and largest position); at ~1 K of context about half the ring is
+// empty or in the future and is neither read nor computed.  Inside a walked
+// tile the mask is per element, from positions; empty entries (kpos -1) are
+// zero-filled, never read.  A producer warp keeps the next walked tiles in
+// flight (cp.async into a 2-stage ring of shared memory at head dim 256,
+// 3 stages below); int8 rings arrive as int8 and are dequantized once a tile
+// in shared memory.
 //
 // Decode design: the ring is split across CTAs, on a grid (sequence, kv head
 // x head tile, split); the wrapper picks the splits for about three CTAs an
@@ -76,17 +84,6 @@ __device__ __forceinline__ void ld8f<int8_t>(const int8_t* p, float (&o)[8]) {
   const int8_t* c = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
   for (int j = 0; j < 8; ++j) o[j] = (float)c[j];
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"((uint32_t)__cvta_generic_to_shared(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"((uint32_t)__cvta_generic_to_shared(p)));
 }
 
 template <int DH>
@@ -537,13 +534,7 @@ extern "C" int rt_ring_prefill_attention(const void* q, const void* k, const voi
   flash::Args a{q, k, v, (const float*)k_scale, (const float*)v_scale, nullptr,
                 (const int*)kpos, (const int*)qpos, out, Sq, H, Hkv, 0, 0, WR, window,
                 sm_scale};
-  const int GT = flash::group_tile(H, Hkv);
-  if (GT < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (Dh == 256) return flash::launch_dh<256, true>(a, B, GT, q_dtype, kv_dtype, st);
-  if (Dh == 128) return flash::launch_dh<128, true>(a, B, GT, q_dtype, kv_dtype, st);
-  if (Dh == 64) return flash::launch_dh<64, true>(a, B, GT, q_dtype, kv_dtype, st);
-  return (int)cudaErrorInvalidValue;
+  return flash::launch<true>(a, B, Dh, q_dtype, kv_dtype, (cudaStream_t)stream);
 }
 
 // Sq = 1: the split pass over S splits of the ring, then the combine.

@@ -7,6 +7,10 @@ version on any device; it exists for the parity tests and for
 ``chip_smoke.py``'s comparisons, and nothing on the serving path enters it.
 No environment variable is read.
 
+``check_card_support`` refuses, before a CUDA session is built, a config
+that some hand kernel would refuse deep inside a layer, naming the kernel
+and its limit; the device rule leaves no other route for such a config.
+
 ``dense_linear`` has no hand kernel, as ``repro``'s has no Pallas one: it is
 one ``torch.matmul`` on f32-upcast operands plus the epilogue, the way XLA's
 f32-accumulating dot is in the JAX package.
@@ -39,6 +43,74 @@ def force_plain():
         yield
     finally:
         _plain.reset(token)
+
+
+def _linear_specs(specs: dict):
+    """The LinearSpecs of a specs dict (rec_specs nests its MLP's)."""
+    for v in specs.values():
+        yield from _linear_specs(v) if isinstance(v, dict) else (v,)
+
+
+def card_limits(cfg, backend: str) -> list[str]:
+    """Why the hand kernels cannot serve ``cfg`` through ``backend`` on the
+    card: one line a kernel limit the config crosses, empty when none.
+    Kernels with no limit a config can cross (the RG-LRU scan; tt_linear,
+    whose bf16 specs past the fused kernel's d <= 8 and ranks <= 32 take the
+    staged kernel) are not listed.  int4 scales are bf16 wherever a config's
+    params are made (``quantize_int4`` in both packages); the int4 wrapper
+    refuses others at the call."""
+    from ..models import griffin, modules, rwkv, transformer
+    g = cfg.n_heads // max(cfg.n_kv_heads, 1)
+    out = []
+    if cfg.family == "rwkv":
+        specs = list(rwkv.rwkv_specs(cfg).values())
+        if cfg.rwkv_head_dim not in _wkv.KERNEL_HEAD_DIMS:
+            out.append(f"wkv_scan takes head dims {_wkv.KERNEL_HEAD_DIMS}; rwkv_head_dim is "
+                       f"{cfg.rwkv_head_dim}")
+    else:
+        flags = (True,) if cfg.family == "griffin" else \
+            {flag for _, flag in transformer.segment_plan(cfg)}
+        specs = [dict(b.attn) | dict(b.mlp)
+                 for b in (transformer.make_block_specs(cfg, f) for f in flags)]
+        if cfg.family == "griffin":
+            specs.append(griffin.rec_specs(cfg))
+        if backend == "paged":
+            if cfg.head_dim not in _paged.HEAD_DIMS:
+                out.append(f"paged_attention (decode) takes head_dim {_paged.HEAD_DIMS}; "
+                           f"head_dim is {cfg.head_dim}")
+            if g % min(g, 16):
+                out.append(f"paged_attention (decode) takes a GQA group of at most 16 or a "
+                           f"multiple of 16; the group is {g}")
+        elif cfg.head_dim not in _prefill.HEAD_DIMS:
+            out.append(f"ring_attention takes head_dim {_prefill.HEAD_DIMS}; head_dim is "
+                       f"{cfg.head_dim}")
+        if g > 64 and g % 64:
+            out.append(f"the attention kernels' f32 path takes a GQA group of at most 64 or "
+                       f"a multiple of 64; the group is {g}")
+    for spec in (s for d in specs for s in _linear_specs(d)):
+        if spec.kind != "int4":
+            continue
+        if cfg.compute_dtype != "bfloat16":
+            out.append(f"int4_matmul takes bf16 activations; compute_dtype is "
+                       f"{cfg.compute_dtype}")
+        if spec.n_in % 32 or spec.quant_group % 16:
+            out.append(f"int4_matmul takes K % 32 == 0 and group % 16 == 0; an int4 linear "
+                       f"has K {spec.n_in}, group {spec.quant_group}")
+    embed = modules.embed_spec(cfg)
+    if embed is not None and embed.tt.d > 8:
+        out.append(f"tt_embed takes at most 8 cores; the embedding has {embed.tt.d}")
+    return list(dict.fromkeys(out))
+
+
+def check_card_support(cfg, device, backend: str) -> None:
+    """Raise ``ValueError`` naming each hand-kernel limit ``cfg`` crosses
+    when ``device`` is CUDA; on a CPU device every config runs on the plain
+    versions and nothing is checked."""
+    if torch.device(device).type != "cuda":
+        return
+    problems = card_limits(cfg, backend)
+    if problems:
+        raise ValueError(f"{cfg.name} cannot be served on the card: " + "; ".join(problems))
 
 
 def dense_linear(x, w, *, scale=None, bias=None, residual=None,

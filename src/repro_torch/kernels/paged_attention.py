@@ -80,13 +80,17 @@ def paged_attention_plain(q, cache: dict, block_tables, qpos, *, sm_scale=None,
                                 window=window, sm_scale=sm_scale)
 
 
-def check_paged_args(q, cache, block_tables, qpos, sq: int):
-    """Device/dtype/shape/contiguity checks shared by both attention kernels."""
+HEAD_DIMS = (64, 128)  # what the decode kernel takes
+
+
+def check_paged_args(q, cache, block_tables, qpos, sq: int, head_dims=HEAD_DIMS):
+    """Device/dtype/shape/contiguity checks shared by both paged kernels;
+    ``head_dims``: the calling kernel's."""
     b, h, dh = q.shape[0], q.shape[-2], q.shape[-1]
     if q.dtype not in (torch.float32, torch.bfloat16) or not q.is_contiguous():
         raise ValueError(f"q must be contiguous f32/bf16; got {q.dtype}")
-    if dh not in (64, 128):
-        raise ValueError(f"attention kernels take head_dim 64 or 128, got {dh}")
+    if dh not in head_dims:
+        raise ValueError(f"this paged attention kernel takes head_dim {head_dims}, got {dh}")
     k, v = cache["k"], cache["v"]
     if k.ndim != 4 or k.shape != v.shape or k.shape[-1] != dh or k.dtype != v.dtype:
         raise ValueError("k/v pools must both be (NB, BS, Hkv, Dh) of one dtype")

@@ -4,12 +4,13 @@
 and the plain version on a CPU tensor.  Replaces
 ``repro/kernels/tt_linear.py::tt_linear_pallas``.  The plain version mirrors
 ``repro``'s ``ref`` path: each stage is stored in the input dtype and
-multiplied in f32.  bf16 input and cores take the fused route: the cores
-split at the mode ``contraction_plan`` picks into two halves, each half
-contracted into one operator (a first launch), then one kernel contracts x
-with both halves on the tensor cores, rounding its one intermediate to bf16
-on chip (a second launch).  Any f32 operand takes the staged route: one
-launch per core, f32 intermediates in a per-call scratch buffer.
+multiplied in f32.  bf16 input and cores with d <= 8 and ranks <= 32 take
+the fused route: the cores split at the mode ``contraction_plan`` picks
+into two halves, each half contracted into one operator (a first launch),
+then one kernel contracts x with both halves on the tensor cores, rounding
+its one intermediate to bf16 on chip (a second launch).  Any f32 operand,
+and a bf16 spec past those limits, takes the staged route: one launch per
+core, f32 intermediates in a per-call scratch buffer (``fused_route``).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from ..core.ttd import TTSpec
 from . import _build
 from .epilogue import ACT_CODES, apply_epilogue
 
-launches = 0          # kernel launches (2 a bf16 call, one per core an f32 call)
+launches = 0          # kernel launches (2 a fused call, one per core a staged call)
 plain_cuda_calls = 0  # plain-version calls that were handed CUDA tensors
 
 
@@ -109,6 +110,20 @@ def _spec_info(spec: TTSpec):
             spec.core_matrix_shapes(), spec.max_intermediate(), plan, op_elems)
 
 
+FUSED_MAX_D, FUSED_MAX_RANK = 8, 32  # csrc/tt_linear.cu MAXD and the rank limit
+
+
+def fused_route(spec: TTSpec, x_dtype, core_dtypes) -> bool:
+    """Which hand kernel a CUDA call takes, by dtype and shape: bf16 x and
+    cores with d <= 8 and every rank <= 32 take the fused two-half
+    contraction; any f32 operand, or a bf16 spec past those limits, takes
+    the staged kernel (one GEMM launch a core, f32 intermediates, any d and
+    rank).  Both are hand kernels, chosen the way int4_matmul picks its GEMV
+    or its GEMM; neither is the plain version."""
+    return (x_dtype == torch.bfloat16 and all(d == torch.bfloat16 for d in core_dtypes)
+            and spec.d <= FUSED_MAX_D and max(spec.ranks) <= FUSED_MAX_RANK)
+
+
 def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
     global launches
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -125,10 +140,7 @@ def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
                              f"got {tuple(c.shape)} {c.dtype}")
     lead = x.shape[:-1]
     b = math.prod(lead)
-    # bf16 x and cores take the fused route
-    fused = x.dtype == torch.bfloat16 and all(c.dtype == torch.bfloat16 for c in cores)
-    if fused and (spec.d > 8 or max(spec.ranks) > 32):
-        raise ValueError(f"the fused kernel takes d <= 8 and ranks <= 32; got {spec}")
+    fused = fused_route(spec, x.dtype, [c.dtype for c in cores])
     if b * max(spec.n_in, spec.n_out, 0 if fused else max_inter) >= 2 ** 31:
         raise ValueError(f"{b} tokens overflow the kernel's 32-bit offsets")
     out = torch.empty(*lead, spec.n_out, dtype=x.dtype, device=x.device)

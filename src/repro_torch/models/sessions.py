@@ -22,6 +22,7 @@ import torch
 
 from .._device import resolve_device
 from ..config import ModelConfig
+from ..kernels.dispatch import check_card_support
 from . import griffin, rwkv, transformer
 
 CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -203,7 +204,9 @@ _SESSION_TYPES: dict[tuple[str, str], type[InferenceSession]] = {
 def make_session(cfg: ModelConfig, spec: SessionSpec | None = None, *,
                  backend: str | None = None, device=None, **spec_kw) -> InferenceSession:
     """Build the typed session for a config; unsupported or not-yet-ported
-    combinations raise ``NotImplementedError`` naming the family."""
+    combinations raise ``NotImplementedError`` naming the family, and on a
+    CUDA device a config past a hand kernel's limits raises ``ValueError``
+    naming the kernel (``dispatch.check_card_support``)."""
     if spec is None:
         spec = SessionSpec(**spec_kw)
     allowed = FAMILY_BACKENDS.get(cfg.family)
@@ -229,4 +232,5 @@ def make_session(cfg: ModelConfig, spec: SessionSpec | None = None, *,
             "not ported to repro_torch yet; ported: "
             + ", ".join(f"{f}/{b}" for f, b in _SESSION_TYPES))
     canonical_cache_dtype(spec.cache_dtype)
+    check_card_support(cfg, resolve_device(device), backend)
     return _SESSION_TYPES[cfg.family, backend](cfg, spec, device=device)

@@ -16,12 +16,14 @@ bf16: the prefill kernel rounds P, and the K and V it dequantizes from int8
 pools, to bf16 for its mma products.
 """
 import math
+import re
 import shutil
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from torch_card_cases import REFUSALS, refused_config
 
 pytestmark = pytest.mark.cuda
 
@@ -409,3 +411,101 @@ def test_tied_tt_unembed_on_card(dev):
         want = logits_from_hidden(params, cfg, x)
     assert got.dtype == torch.float32 and got.shape == (2, 5, cfg.vocab_size)
     _close(got, want, 1e-4)
+
+
+def _ring_scenario(kind, wr, sq, dev):
+    """kpos (4, wr) and qpos (4, sq) for the flash tile's edge cases: a ring
+    wrapped twice, a ring whose middle tiles are empty, a short ring whose
+    later tiles are empty, and an all-padding sequence; ``kind`` "paged"
+    gives the same query positions over a paged context instead."""
+    fill = [2 * wr + 77, wr + 40, 45, 0]
+    kpos = torch.full((4, wr), -1, dtype=torch.int32)
+    for i, n in enumerate(fill):
+        p = torch.arange(max(0, n - wr), n, dtype=torch.int32)
+        kpos[i, p % wr] = p
+    kpos[1, 64:192] = -1  # two interior tiles hold nothing
+    qpos = torch.full((4, sq), -1, dtype=torch.int32)
+    for i, n in enumerate(fill[:3]):
+        m = min(n, sq)
+        qpos[i, :m] = torch.arange(n - m, n, dtype=torch.int32)
+    qpos[0, 5] = -1  # a padding row inside a live tile
+    return kpos.to(dev), qpos.to(dev)
+
+
+@pytest.mark.parametrize("kvdt", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("h,hkv,dh", [(10, 1, 256), (16, 1, 128), (4, 4, 64), (6, 2, 256)])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_flash_tile_edges(dev, layout, window, h, hkv, dh, kvdt):
+    """The bf16 flash tile of both layouts (Sq 70: not a multiple of any row
+    tile) against the plain version, element by element in bf16: wrapped
+    rings, interior empty tiles, a window edge inside a tile (window 100),
+    padding rows and an all-padding sequence (zero output), head dims 64,
+    128 and 256, bf16 and int8 K/V.  One launch a call."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import prefill_attention as pf
+    g = torch.Generator(device=dev).manual_seed(h * 7 + dh + window)
+    b, sq, wr = 4, 70, 384
+    kpos, qpos = _ring_scenario(layout, wr, sq, dev)
+    q = torch.randn(b, sq, h, dh, generator=g, device=dev).to(torch.bfloat16)
+    if layout == "ring":
+        ring = _ring(b, wr, hkv, dh, kvdt, dev, g, [0] * b)
+        kw = dict(k=ring["k"], v=ring["v"], kpos=kpos, window=window,
+                  k_scale=ring.get("k_scale"), v_scale=ring.get("v_scale"))
+        n0 = pf.ring_launches
+        got = pf.ring_attention(q, qpos, **kw)
+        torch.cuda.synchronize()
+        assert pf.ring_launches == n0 + 1
+        want = pf.ring_attention_plain(q.float(), ring["k"], ring["v"], qpos, kpos,
+                                       window=window, k_scale=ring.get("k_scale"),
+                                       v_scale=ring.get("v_scale"))
+    else:
+        bs, w = 16, 2 * wr // 16 + 8
+        nb = 1 + b * w
+        cache = _pool(nb, bs, hkv, dh, kvdt, dev, g)
+        bt = torch.randperm(nb - 1, generator=g, device=dev)[:b * w].reshape(b, w)
+        bt = (bt + 1).to(torch.int32)
+        n0 = pf.launches
+        got = pf.prefill_attention(q, qpos, cache=cache, block_tables=bt, window=window)
+        torch.cuda.synchronize()
+        assert pf.launches == n0 + 1
+        want = pa.paged_attention_plain(q.float(), cache, bt, qpos, window=window)
+    _close_rows(got, want, 2.0 ** -6, 2.0 ** -6)
+    assert not got[qpos < 0].any()
+    walked, total = pf.tiles_walked(qpos, h, hkv, None if layout == "paged" else kpos,
+                                    window=window)
+    assert walked < total or (layout == "paged" and not window)
+
+
+@pytest.mark.parametrize("modes,rank", [(((2,) * 9, (2,) * 9), 4),    # d = 9
+                                        (((16, 8, 8), (8, 8, 16)), 48)])  # rank 48
+def test_tt_linear_past_fused_limits(dev, modes, rank):
+    """bf16 specs past the fused kernel's d <= 8 and ranks <= 32 take the
+    staged kernel: a launch per core, against the plain version at 2e-2 of
+    max|want| (bf16 output rounding)."""
+    from repro_torch.core.ttd import TTSpec
+    from repro_torch.kernels import tt_linear as k
+    spec = TTSpec.make(0, 0, rank, d=len(modes[0]), in_modes=modes[0], out_modes=modes[1])
+    assert not k.fused_route(spec, torch.bfloat16, [torch.bfloat16] * spec.d)
+    g = torch.Generator(device=dev).manual_seed(rank)
+    cores = [(torch.randn(s, generator=g, device=dev) / math.sqrt(s[0])).to(torch.bfloat16)
+             for s in spec.core_matrix_shapes()]
+    x = torch.randn(37, spec.n_in, generator=g, device=dev).to(torch.bfloat16)
+    res = torch.randn(37, spec.n_out, generator=g, device=dev).to(torch.bfloat16)
+    n0 = k.launches
+    got = k.tt_linear(x, cores, spec, residual=res, activation="silu")
+    torch.cuda.synchronize()
+    assert k.launches == n0 + spec.d
+    want = k.tt_linear_ref(x.float(), [c.float() for c in cores], spec, residual=res.float(),
+                           activation="silu")
+    _close(got, want, 2e-2)
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_make_session_refuses_on_card(dev, case):
+    """Each config past a hand kernel's limit is refused by make_session on
+    the card, before any state is built, naming the kernel and its limit."""
+    from repro_torch.models.sessions import SessionSpec, make_session
+    cfg, backend, limit = refused_config(case)
+    with pytest.raises(ValueError, match=re.escape(limit)):
+        make_session(cfg, SessionSpec(slots=2, max_len=64), backend=backend, device=dev)
