@@ -332,7 +332,14 @@ class Smoke:
         name = "paged_attention" if decode else "prefill_attention"
         label = f"{'decode B=8' if decode else f'prefill B=8 Sq={sq}'} H{h}/Hkv{hkv}/Dh{dh} " \
                 f"{'int8' if int8 else 'bf16'} pool"
-        if not decode:
+        if decode:
+            splits, kps = pa.decode_plan(w * bs)
+            live = int(sum(min(splits, int(n - 1) // kps + 1) for n in ctx))
+            print(f"[{name}] {label}: {splits} splits of {kps} entries a (sequence, head "
+                  f"tile), {live * hkv * (h // hkv // pa.head_tile(h // hkv))} CTAs live of "
+                  f"{b * splits * hkv * (h // hkv // pa.head_tile(h // hkv))}; one launch, the "
+                  f"merge in it", flush=True)
+        else:
             self.tile_count(name, label, pf.tiles_walked(qpos, h, hkv))
         self.record(name, label, got, want, "rows",
                     "bf16 output rounding; both read the same pool values", ms, plain_ms,
@@ -431,6 +438,9 @@ class Smoke:
         if sq > 1:
             self.tile_count("ring_attention", label,
                             pf.tiles_walked(qpos, h, hkv, kpos, window=window))
+        else:
+            print(f"[ring_attention] {label}: {pf.decode_splits(b, wr, hkv)} splits of the "
+                  f"ring, then the combine launch", flush=True)
         self.record("ring_attention", label, got, want, "rows",
                     "bf16 output rounding; both read the same ring values", ms, plain_ms,
                     lib_ms, "scaled_dot_product_attention over the ring with the "
@@ -576,9 +586,10 @@ class Smoke:
         for what, good in list(bitwise.items()) + list(checks.items()):
             if not good:
                 self.failures.append(f"wkv_scan {label}: {what}")
-        self.record("wkv_scan", label, y, yw, 1e-4,
-                    "f32 recurrence: the kernel walks the steps with the floored decay, the "
-                    "plain version takes the chunked form", ms, plain_ms, None,
+        why = ("f32 recurrence, the exact step on both sides" if s == 1 else
+               "f32 recurrence: both sides take the chunked form with the floored decay, the "
+               "kernel its four products a chunk on the tensor cores in 3xTF32")
+        self.record("wkv_scan", label, y, yw, 1e-4, why, ms, plain_ms, None,
                     "none: torch has no op for a matrix-state linear recurrence",
                     nbytes, flops, F32_FLOPS)
 
@@ -843,6 +854,11 @@ class Smoke:
                   flush=True)
             print(f"[profile {path}] {what}: attention kernels {attn_s / n * 1e3:.3f} ms "
                   f"per call", flush=True)
+            wkv = [e for e in hand if "wkv_" in e.key]
+            if wkv:
+                print(f"[profile {path}] {what}: wkv_scan device time a launch "
+                      + "; ".join(f"{e.key[:40]} {e.self_device_time_total / e.count / 1e3:.4f} "
+                                  f"ms ({e.count} launches)" for e in wkv), flush=True)
 
         def decode():
             nonlocal state
@@ -909,8 +925,8 @@ def main() -> int:
         for hkv in (32, 2):
             for int8 in (False, True):
                 s.attn_phase(decode, hkv, int8)
-    for int8 in (False, True):  # the paged layout at head_dim 256 (griffin's attention heads)
-        s.attn_phase(False, 1, int8, h=10, dh=256)
+        for int8 in (False, True):  # the paged layout at head_dim 256 (griffin's heads)
+            s.attn_phase(decode, 1, int8, h=10, dh=256)
     # recurrentgemma-2b's rings: window 2048 + chunk 256; contexts past one wrap
     rg_ctx = (3000, 2400, 1500, 256, 3900, 700, 0, 2304)
     for sq in (1, 256):

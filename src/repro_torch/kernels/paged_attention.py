@@ -1,11 +1,18 @@
 """Paged decode attention (one query token per sequence).
 
-``paged_attention`` runs the CUDA kernel (``csrc/paged_attention.cu``) on a
-CUDA tensor and the plain gather + masked-softmax version on a CPU tensor.
-Replaces ``repro/kernels/paged_attention.py::paged_attention_pallas``.  The
-masked softmax over explicit key positions (``ring_attention_plain``) is the
-plain version of every attention kernel: ``paged_attention_plain`` (any Sq,
+``paged_attention`` runs the CUDA kernel (``csrc/paged_attention.cu``, its
+CTA body in ``csrc/flash_decode.cuh``) on a CUDA tensor and the plain gather
++ masked-softmax version on a CPU tensor.  Replaces
+``repro/kernels/paged_attention.py::paged_attention_pallas``.  The masked
+softmax over explicit key positions (``ring_attention_plain``) is the plain
+version of every attention kernel: ``paged_attention_plain`` (any Sq,
 optional window) runs it over the gathered pool.
+
+The kernel splits each sequence's table across CTAs and merges the splits
+in the same launch.  Its plan is written out here as plain functions, for
+the CPU tests and for ``chip_smoke.py``: ``decode_plan`` (the splits, from
+the shapes alone) and ``split_paged_decode`` (the splits' partial softmaxes
+and the last arriver's merge in split order, emulated in float32).
 """
 from __future__ import annotations
 
@@ -80,7 +87,11 @@ def paged_attention_plain(q, cache: dict, block_tables, qpos, *, sm_scale=None,
                                 window=window, sm_scale=sm_scale)
 
 
-HEAD_DIMS = (64, 128)  # what the decode kernel takes
+HEAD_DIMS = (64, 128, 256)  # what the decode kernel takes
+KEY_TILE = 64      # entries a tile of the kernel's tensor-core body
+MAX_SPLIT = 256    # entries a split, while 64 splits cover the table
+MAX_SPLITS = 64    # most splits the in-launch merge takes
+HEAD_TILE = 16     # most GQA heads a CTA
 
 
 def check_paged_args(q, cache, block_tables, qpos, sq: int, head_dims=HEAD_DIMS):
@@ -120,6 +131,43 @@ def check_paged_args(q, cache, block_tables, qpos, sq: int, head_dims=HEAD_DIMS)
     return quantized
 
 
+def head_tile(g: int) -> int:
+    """The GQA heads a CTA scores: the largest divisor of the group ``g``
+    that is at most 16 (10 for recurrentgemma-2b's group of 10)."""
+    gt = min(g, HEAD_TILE)
+    while g % gt:
+        gt -= 1
+    return gt
+
+
+def decode_plan(entries: int) -> tuple[int, int]:
+    """(splits, entries a split) for tables of ``entries`` = W * BS
+    positions: splits of 256 entries (four 64-entry tiles), longer only
+    where 64 splits (the merge's limit) would not cover the table.  Chosen
+    from the table width alone (reading qpos on the host would stall the
+    decode tick).  A device-time sweep at the serve shapes (B 8, 64-1600
+    keys; PERF.md §6, PR 17) found 256 the best or within noise of the best
+    of 64-768 entries a split at every shape: shorter splits add CTAs whose
+    fixed chain (block table, K/V, partials, fence, count) and a longer
+    merge cost more than the parallelism buys."""
+    kps = max(MAX_SPLIT, -(-entries // MAX_SPLITS // KEY_TILE) * KEY_TILE)
+    return -(-entries // kps), kps
+
+
+_workspace: dict = {}
+
+
+def _decode_workspace(device, n_part: int, n_count: int):
+    """The f32 partials and the int32 split counters of one device and size,
+    made once and reused: the counters start at 0 and every launch leaves
+    them at 0, so a call needs no zero-filling launch."""
+    key = (device.index, n_part, n_count)
+    if key not in _workspace:
+        _workspace[key] = (torch.empty(n_part, dtype=torch.float32, device=device),
+                           torch.zeros(n_count, dtype=torch.int32, device=device))
+    return _workspace[key]
+
+
 def _paged_attention_cuda(q, cache, block_tables, qpos, sm_scale):
     global launches
     if q.ndim != 3:
@@ -130,14 +178,19 @@ def _paged_attention_cuda(q, cache, block_tables, qpos, sm_scale):
     out = torch.empty_like(q)
     if b == 0:
         return out
+    w = block_tables.shape[1]
+    g = h // hkv
+    splits, kps = decode_plan(w * bs)
+    part, count = _decode_workspace(q.device, b * h * splits * (dh + 2),
+                                    b * hkv * (g // head_tile(g)))
     err = _build.lib().rt_paged_decode_attention(
         q.data_ptr(), cache["k"].data_ptr(), cache["v"].data_ptr(),
         _build.ptr(cache["k_scale"]) if quantized else None,
         _build.ptr(cache["v_scale"]) if quantized else None,
-        block_tables.data_ptr(), qpos.data_ptr(), out.data_ptr(),
-        b, h, hkv, dh, bs, block_tables.shape[1], 0,
+        block_tables.data_ptr(), qpos.data_ptr(), out.data_ptr(), part.data_ptr(),
+        count.data_ptr(), b, h, hkv, dh, bs, w,
         float(sm_scale or (1.0 / math.sqrt(dh))), _build.dtype_code(q),
-        _build.dtype_code(cache["k"]), _build.stream(q))
+        _build.dtype_code(cache["k"]), splits, kps, _build.stream(q))
     _build.check(err, "paged_attention")
     launches += 1
     return out
@@ -157,3 +210,56 @@ def paged_attention_ref(q, cache: dict, block_tables, qpos, *, sm_scale=None):
     plain_cuda_calls += q.is_cuda
     return paged_attention_plain(q[:, None], cache, block_tables, qpos[:, None],
                                  sm_scale=sm_scale)[:, 0]
+
+
+def split_paged_decode(q, cache: dict, block_tables, qpos, splits: int, kps: int,
+                       tile: int = KEY_TILE, *, sm_scale=None) -> torch.Tensor:
+    """The kernel's plan emulated in float32: q (B, H, Dh) at qpos (B,) over
+    the paged pool, each sequence's W * BS table entries cut into ``splits``
+    ranges of ``kps``; a split past qpos is not live and adds nothing; a live
+    split walks its entries ``tile`` at a time with an online softmax, and
+    its partial (m, l, unnormalized o) joins the merge, which runs over the
+    live splits in split order as the last CTA to arrive does.  qpos -1
+    gives zeros.  Returns (B, H, Dh) in ``q.dtype``."""
+    k, v = gather_paged_kv(cache, block_tables)  # (B, W*BS, Hkv, Dh) by position
+    b, h, dh = q.shape
+    hkv, entries = k.shape[2], k.shape[1]
+    g = h // hkv
+    if splits * kps < entries or (splits - 1) * kps >= entries:
+        raise ValueError(f"{splits} splits of {kps} entries do not cover {entries}")
+    scale = sm_scale or (1.0 / math.sqrt(dh))
+    out = torch.zeros(b, h, dh)
+    for i in range(b):
+        qp = int(qpos[i])
+        if qp < 0:
+            continue
+        live = min(splits, qp // kps + 1)
+        qh = q[i].reshape(hkv, g, dh).to(torch.float32)
+        parts = []
+        for sp in range(live):
+            m = torch.full((hkv, g), NEG_INF)
+            l = torch.zeros(hkv, g)
+            o = torch.zeros(hkv, g, dh)
+            for t0 in range(sp * kps, min((sp + 1) * kps, entries, qp + 1), tile):
+                e = torch.arange(t0, min(t0 + tile, (sp + 1) * kps, entries))
+                ok = e <= qp
+                s = torch.einsum("hgd,khd->hgk", qh, k[i, e]) * scale
+                s = torch.where(ok, s, torch.full((), NEG_INF))
+                mn = torch.maximum(m, s.amax(-1))
+                p = torch.where(ok, torch.exp(s - mn[..., None]), torch.zeros(()))
+                c = torch.exp(m - mn)
+                l = l * c + p.sum(-1)
+                o = o * c[..., None] + torch.einsum("hgk,khd->hgd", p, v[i, e])
+                m = mn
+            parts.append((m, l, o))
+        big_m = torch.stack([m for m, _, _ in parts]).amax(0)
+        big_l = torch.zeros(hkv, g)
+        big_o = torch.zeros(hkv, g, dh)
+        for m, l, o in parts:  # split order
+            wgt = torch.exp(m - big_m)
+            big_l = big_l + wgt * l
+            big_o = big_o + wgt[..., None] * o
+        res = torch.where(big_l[..., None] > 0, big_o / big_l.clamp(min=1e-30)[..., None],
+                          torch.zeros(()))
+        out[i] = res.reshape(h, dh)
+    return out.to(q.dtype)

@@ -3,17 +3,17 @@
     S_t = diag(w_t) S_{t-1} + k_tᵀ v_t;   y_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t)
 
 ``wkv_scan`` runs the CUDA kernel (``csrc/wkv_scan.cu``: one CTA per (slot,
-head), the state in registers for the whole call) on a CUDA tensor and the
-plain PyTorch version on a CPU tensor.  Replaces
+head), the state on chip for the whole call) on a CUDA tensor and the plain
+PyTorch version on a CPU tensor.  Replaces
 ``repro/kernels/scan_wkv.py::wkv_scan_pallas``.
 
 The contract is ``repro.kernels.ref.wkv_scan``'s.  S > 1 is the chunked form
 (``WKV_CHUNK``-step chunks, ragged tails padded with identity steps), whose
-per-step log-decay is clipped at ``WKV_LOG_DECAY_FLOOR``: it equals the
-sequential recurrence run with ``w' = exp(clip(log max(w, 1e-38), floor,
-0))``, which is what the kernel walks.  S == 1 is the exact step with the raw
-``w``.  A padding step (``pos`` -1) has k = 0 and w = 1, so an f32 state
-passes it bitwise.  int8 state carries per-(slot, head) f32 scales: it is
+per-step log-decay is clipped at ``WKV_LOG_DECAY_FLOOR``; the kernel computes
+that form too, its four products per chunk on the tensor cores in 3xTF32
+(``wkv_chunk_plan`` emulates it, TF32 rounding and all).  S == 1 is the exact
+step with the raw ``w``.  A padding step (``pos`` -1) has k = 0 and w = 1, so
+an f32 state passes it bitwise.  int8 state carries per-(slot, head) f32 scales: it is
 dequantized at entry and requantized at exit with amax/127 (round half to
 even); a row with no real step returns its stored payload and scale bitwise.
 """
@@ -137,6 +137,74 @@ def wkv_scan_ref(r, k, v, w, u, state0, pos=None, *, state_scale=None):
     return wkv_scan_plain(r, k, v, w, u, state0, pos, state_scale=state_scale)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: the low 13
+    of the 23 mantissa bits rounded off, ties away from zero."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the 3xTF32 split the kernel's mma.sync runs: a_hi b_hi +
+    a_hi b_lo + a_lo b_hi, with hi = tf32(x) and lo = tf32(x - hi)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def wkv_chunk_plan(r, k, v, w, u, state0, pos=None, *, state_scale=None):
+    """The chunked kernel's plan emulated in float32 (S > 1): per chunk of
+    ``WKV_CHUNK`` steps the clipped log-decays and their sums, r~, k~ and
+    k_end, A = tril_{-1}(r~ k~^T), y = A v + diag v + r~ S and, when the
+    chunk holds a real step, S <- e^{la_end} S + k_end^T v, each product in
+    3xTF32; ragged tails and padding steps are identity steps.  Returns (y,
+    new state, new scale or None) like ``wkv_scan_plain``."""
+    check_shapes(r, k, v, w, u, state0, pos, state_scale)
+    f32 = torch.float32
+    b, s, h, hd = r.shape
+    c_len = WKV_CHUNK
+    n = -(-s // c_len) * c_len
+    pad = (0, 0, 0, 0, 0, n - s)
+    r, k, v, w = (torch.nn.functional.pad(t.to(f32), pad) for t in (r, k, v, w))
+    real = torch.arange(n)[None] < s
+    if pos is not None:
+        real = real & (torch.nn.functional.pad(pos, (0, n - s), value=-1) >= 0)
+    u = u.to(f32)
+    st = state0.to(f32)
+    if state_scale is not None:
+        st = st * state_scale[..., None, None]
+    to_bh = lambda t: t.permute(0, 2, 1, 3)  # noqa: E731  (B, H, C, hd)
+    ys = []
+    tri = torch.tril(torch.ones(c_len, c_len, dtype=torch.bool), diagonal=-1)
+    for c0 in range(0, n, c_len):
+        sl = slice(c0, c0 + c_len)
+        live = real[:, sl][:, None, :, None]  # (B, 1, C, 1)
+        rc, vc = to_bh(r[:, sl]), to_bh(v[:, sl])
+        kc = torch.where(live, to_bh(k[:, sl]), 0.0)
+        lw = torch.where(live, torch.clamp(torch.log(torch.clamp(to_bh(w[:, sl]), min=1e-38)),
+                                           WKV_LOG_DECAY_FLOOR, 0.0), 0.0)
+        la = torch.cumsum(lw, dim=2)
+        lx = torch.nn.functional.pad(la[:, :, :-1], (0, 0, 1, 0))
+        le = la[:, :, -1:]
+        rt, kt, ke = rc * torch.exp(lx), kc * torch.exp(-la), kc * torch.exp(le - la)
+        a = torch.where(tri, mm_3xtf32(rt, kt.transpose(-1, -2)), 0.0)
+        dg = (rc * u[None, :, None, :] * kc).sum(-1, keepdim=True)
+        y = mm_3xtf32(a, vc) + dg * vc + mm_3xtf32(rt, st)
+        any_real = real[:, sl].any(dim=1)[:, None, None, None]
+        upd = st * torch.exp(le).transpose(-1, -2) + mm_3xtf32(ke.transpose(-1, -2), vc)
+        st = torch.where(any_real, upd, st)
+        ys.append(y.permute(0, 2, 1, 3))
+    y = torch.cat(ys, dim=1)[:, :s]
+    if state_scale is None:
+        return y, st, None
+    sc = st.abs().amax(dim=(-2, -1)).clamp(min=1e-8) / 127.0
+    q = torch.round(st / sc[..., None, None]).to(torch.int8)
+    idle = ~real.any(dim=1)
+    q = torch.where(idle[:, None, None, None], state0, q)
+    sc = torch.where(idle[:, None], state_scale, sc)
+    return y, q, sc
+
+
 def _wkv_scan_cuda(r, k, v, w, u, state0, pos, state_scale):
     global launches
     check_shapes(r, k, v, w, u, state0, pos, state_scale)
@@ -160,14 +228,15 @@ def _wkv_scan_cuda(r, k, v, w, u, state0, pos, state_scale):
     if pos is not None and (pos.dtype != torch.int32 or not pos.is_contiguous()
                             or not pos.is_cuda):
         raise ValueError("pos must be a contiguous CUDA int32 tensor")
+    if s > 1 and any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("the chunked wkv kernel takes r/k/v/w at 16-byte aligned addresses")
     y = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
     st = torch.empty_like(state0)
     sc = None if state_scale is None else torch.empty_like(state_scale)
     err = _build.lib().rt_wkv_scan(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), _build.ptr(pos),
         state0.data_ptr(), _build.ptr(state_scale), y.data_ptr(), st.data_ptr(), _build.ptr(sc),
-        b, s, h, hd, _build.dtype_code(r), _build.dtype_code(state0),
-        int(s > 1), _build.stream(r))
+        b, s, h, hd, _build.dtype_code(r), _build.dtype_code(state0), _build.stream(r))
     _build.check(err, "wkv_scan")
     launches += 1
     return y, st, sc

@@ -168,6 +168,39 @@ def test_paged_attention_kernels(dev, sq, window, h, hkv, dh, qdt, kvdt):
     assert not got[qpos < 0].any()
 
 
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16),
+                                      (torch.bfloat16, torch.int8),
+                                      (torch.float32, torch.int8)])
+@pytest.mark.parametrize("h,hkv,dh", [(4, 4, 64), (8, 4, 128), (32, 2, 128), (16, 1, 256),
+                                      (10, 1, 256)])
+def test_paged_decode_splits(dev, h, hkv, dh, qdt, kvdt):
+    """Paged decode over tables of 640 entries in 3 splits (GQA groups 1, 2,
+    16 and 10): contexts of 1 key, mid-block (37), past a split boundary
+    (299), the full table (640), one split only (129) and an inactive row
+    (qpos -1: zeros); one launch a call, and three calls in a row bitwise
+    equal (the split counters reset and the merge runs in split order)."""
+    from repro_torch.kernels import paged_attention as pa
+    g = torch.Generator(device=dev).manual_seed(h * 10 + dh)
+    b, bs, w = 6, 16, 40
+    nb = 1 + b * w
+    cache = _pool(nb, bs, hkv, dh, kvdt, dev, g)
+    bt = torch.randperm(nb - 1, generator=g, device=dev)[:b * w].reshape(b, w).to(torch.int32) + 1
+    q = torch.randn(b, h, dh, generator=g, device=dev).to(qdt)
+    qpos = torch.tensor([0, 36, 639, 299, -1, 128], dtype=torch.int32, device=dev)
+    splits, kps = pa.decode_plan(w * bs)
+    assert splits == 3
+    n0 = pa.launches
+    got = [pa.paged_attention(q, cache, bt, qpos) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert pa.launches == n0 + 3
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+    want = pa.paged_attention_plain(q.float()[:, None], cache, bt, qpos[:, None])[:, 0]
+    _close_rows(got[0], want, *((1e-4, 1e-4) if qdt == torch.float32 else (2.0 ** -6, 2.0 ** -6)))
+    assert torch.isfinite(got[0].float()).all()
+    assert not got[0][qpos < 0].any()
+
+
 def _ring(b, wr, hkv, dh, dtype, dev, g, fill):
     """Rings of ``wr`` entries holding positions ``fill[i]`` .. in ring order
     (entry p % wr), so a row filled past ``wr`` has wrapped; -1 = empty."""
@@ -356,10 +389,11 @@ def _wkv_inputs(dev, b, s, h, hd, in_dtype, state_dtype, seed):
 @pytest.mark.parametrize("state_dtype", [torch.float32, torch.int8])
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,hd", [(8, 256, 64, 64), (8, 1, 64, 64), (3, 20, 4, 16),
-                                      (3, 1, 4, 16), (4, 37, 2, 32)])
+                                      (3, 1, 4, 16), (4, 37, 2, 32), (3, 15, 4, 64),
+                                      (3, 16, 4, 32), (3, 17, 8, 64), (3, 256, 4, 16)])
 def test_wkv_scan_kernel(dev, b, s, h, hd, in_dtype, state_dtype):
-    """y and an f32 state within 1e-4 of max|want| (the kernel walks the
-    steps with the floored decay, the plain version takes the chunked form:
+    """y and an f32 state within 1e-4 of max|want| (S > 1: both take the
+    chunked form, the kernel its products in 3xTF32; S = 1: the exact step;
     f32 rounding only); an int8 payload within one step, its scale within
     1e-5 relative; the idle slot's state (and scale) bitwise; the padded
     slot's state bitwise equal to the kernel's over its real prefix alone."""

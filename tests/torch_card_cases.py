@@ -10,7 +10,7 @@ REFUSALS = {
     "int4_f32": "int4_matmul takes bf16 activations",
     "int4_group": "int4_matmul takes K % 32 == 0 and group % 16 == 0",
     "wkv_head_dim": "wkv_scan takes head dims (16, 32, 64)",
-    "paged_head_dim": "paged_attention (decode) takes head_dim (64, 128)",
+    "paged_head_dim": "paged_attention (decode) takes head_dim (64, 128, 256)",
     "ring_head_dim": "ring_attention takes head_dim (64, 128, 256)",
 }
 
