@@ -29,7 +29,8 @@ then:
       counter reset just before and read just after;
    c. a profile of decode steps and of one prefill chunk: wall time against
       device kernel time (``torch.profiler``), the device's busy share, the
-      top kernels, each hand kernel's time and the attention kernels' time.
+      top kernels, each hand kernel's time, the attention kernels' time, the
+      count of device kernels a call and the scans' device time a launch.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  It exits
@@ -113,6 +114,14 @@ def reset_counters():
         m = importlib.import_module(f"repro_torch.kernels.{mod}")
         setattr(m, launch, 0)
         setattr(m, plain, 0)
+
+
+def sm_clock() -> str:
+    """The card's SM clock and power draw as nvidia-smi reads them now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    return out.splitlines()[0] if out else "n/a"
 
 
 def tt_row_flops(spec) -> int:
@@ -497,6 +506,57 @@ class Smoke:
                     nbytes, 8.0 * real * w, F32_FLOPS)
 
 
+    def rglru_gated_phase(self, s):
+        """The fused entry at griffin's shapes (B 8, W 2560, bf16 operands and
+        a bf16 lambda) over S steps (S = 1: decode), h_last written in place
+        into the state: slot 1 idle, slots 2 and 3 tail-padded (S > 1).  y is
+        held to a tolerance, h_last too, and the idle row's state bitwise."""
+        torch = self.torch
+        from repro_torch.kernels import scan_rglru as k
+        b, w = 8, 2560
+        bf16 = torch.bfloat16
+        ga, gxp, u, g = (self.randn(b, s, w, dtype=bf16) for _ in range(4))
+        lam = self.randn(w, scale=0.5).add_(0.7).to(bf16)
+        h0 = self.randn(b, w)
+        pos = torch.arange(s, device=self.dev, dtype=torch.int32)[None].repeat(b, 1)
+        pos[1] = -1
+        if s > 1:
+            pos[2, 100:] = -1
+            pos[3, 200:] = -1
+        state = h0.clone()
+
+        def run(i, fn=k.rg_lru_gated):
+            return fn(ga, gxp, u, lam, g, state, pos, h_out=state)
+
+        y, last = run(0)
+        last = last.clone()
+        state.copy_(h0)
+        yw, lw = run(0, k.rg_lru_gated_ref)
+        lw = lw.clone()
+        ms = self.time_ms(run)
+        plain_ms = self.time_ms(lambda i: run(i, k.rg_lru_gated_ref), iters=3)
+        bitwise = {"idle row h_last == h0": torch.equal(last[1], h0[1])}
+        last_err = (last - lw).abs().max().item() / lw.abs().max().item()
+        real = int((pos >= 0).sum())
+        # ga, gxp, u of real steps, g and y of every step (bf16); lambda; h0, h_last; pos
+        nbytes = 3 * 2 * real * w + 2 * 2 * b * s * w + 2 * w + 2 * 4 * b * w + 4 * pos.numel()
+        # a real step: 2 sigmoids (~4 each), log a and gx (2), the pair (~6), the scan's
+        # prefix, walk and fix-up (~6); every step: gelu_tanh (~8) and the product (2)
+        flops = 22.0 * real * w + 10.0 * b * s * w
+        label = (f"gated {'decode' if s == 1 else 'prefill'} B={b} S={s} W={w} bf16 ga/gxp/u/g, "
+                 f"bf16 y, h_last in place")
+        print(f"[rglru_scan] {label}: bitwise {bitwise}; h_last max|d|/max|want| "
+              f"{last_err:.2e} (tol 1e-5)", flush=True)
+        for what, good in bitwise.items():
+            if not good:
+                self.failures.append(f"rglru_scan {label}: {what} not bitwise")
+        if not last_err <= 1e-5:
+            self.failures.append(f"rglru_scan {label}: h_last {last_err}")
+        self.record("rglru_scan", label, y, yw, 2.0 ** -7,
+                    "bf16 y: one rounding each of h and gelu(g); h as in the scan phases",
+                    ms, plain_ms, None, "none: torch has no linear-recurrence scan op",
+                    nbytes, flops, F32_FLOPS)
+
     def tt_embed_phase(self, spec, t):
         """TT embedding rows of T ids at llama2-7b's embed spec (bf16 cores),
         four of them out of range (-1, -V-3, V, V+7).  Held element by element
@@ -831,6 +891,7 @@ class Smoke:
                 run()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+            clock = sm_clock()
             events = [e for e in prof.key_averages() if e.device_time_total > 0
                       and not e.key.startswith(("aten::", "cuda"))]
             device_s = sum(e.self_device_time_total for e in events) / 1e6
@@ -854,11 +915,15 @@ class Smoke:
                   flush=True)
             print(f"[profile {path}] {what}: attention kernels {attn_s / n * 1e3:.3f} ms "
                   f"per call", flush=True)
-            wkv = [e for e in hand if "wkv_" in e.key]
-            if wkv:
-                print(f"[profile {path}] {what}: wkv_scan device time a launch "
-                      + "; ".join(f"{e.key[:40]} {e.self_device_time_total / e.count / 1e3:.4f} "
-                                  f"ms ({e.count} launches)" for e in wkv), flush=True)
+            n_kernels = sum(e.count for e in events if not e.key.startswith(("Memcpy", "Memset")))
+            print(f"[profile {path}] {what}: device kernels {n_kernels / n:.1f} per call; SM "
+                  f"clock, power just after: {clock}", flush=True)
+            for name, tag in (("wkv_scan", "wkv_"), ("rglru_scan", "rglru_")):
+                scans = [e for e in hand if tag in e.key]
+                if scans:
+                    print(f"[profile {path}] {what}: {name} device time a launch "
+                          + "; ".join(f"{e.key[:40]} {e.self_device_time_total / e.count / 1e3:.4f} "
+                                      f"ms ({e.count} launches)" for e in scans), flush=True)
 
         def decode():
             nonlocal state
@@ -939,6 +1004,8 @@ def main() -> int:
                  (300, 512, 64, 256, 0, 700, 128, 400))
     for steps in (1, 256):
         s.rglru_phase(steps)
+    for steps in (1, 256):
+        s.rglru_gated_phase(steps)
     llama_embed = serve_config_of(get_config("llama2-7b"))
     llama_embed = llama_embed.replace(ttd=dataclasses.replace(llama_embed.ttd, embed=True))
     for t in (8, 2048):

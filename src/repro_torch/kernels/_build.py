@@ -26,6 +26,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_long
 
 # C entry points and their argument types (see each .cu file's extern "C").
 SIGNATURES = {
@@ -37,10 +38,14 @@ SIGNATURES = {
     "rt_paged_prefill_attention": [P] * 8 + [I] * 8 + [F, I, I, P],
     "rt_ring_prefill_attention": [P] * 8 + [I] * 7 + [F, I, I, P],
     "rt_ring_decode_attention": [P] * 9 + [I] * 6 + [F, I, I, I, P],
-    "rt_rglru_scan": [P] * 6 + [I] * 4 + [P],
+    "rt_rglru_scan": [P] * 7 + [L] + [I] * 5 + [P],
+    "rt_rglru_gated": [P] * 10 + [L] + [I] * 6 + [P],
+    "rt_rglru_workspace_bytes": [I] * 3,
     "rt_tt_embed": [P, I, P, I, P, I, I, P, P, P, P, I, P],
     "rt_wkv_scan": [P] * 11 + [I] * 6 + [P],
 }
+
+RESTYPE_LONG = {"rt_rglru_workspace_bytes"}
 
 _LIB = None
 build_seconds = None  # wall time of the build (or load) done in this process
@@ -110,7 +115,7 @@ def lib() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(handle, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = L if name in RESTYPE_LONG else ctypes.c_int
     _LIB = handle
     build_seconds = time.perf_counter() - t0
     return _LIB

@@ -190,6 +190,19 @@ def rglru_scan(log_a, gx, h0, pos=None, *, scan_dtype=None):
     return _rglru.rglru_scan(log_a, gx, h0, pos, scan_dtype=scan_dtype)
 
 
+def rg_lru_gated(ga, gxp, u, lam, g, h0, pos=None, *, h_out=None):
+    """Griffin's RG-LRU with its gate math and output gate in one call: ga,
+    gxp, u, g (B, S, W) of one dtype (the gate linears' outputs, the conv
+    output, the ``in_g`` linear's output), lam (W,), h0 (B, W) f32, pos
+    (B, S) (-1 = padding step).  r = σ(ga), i = σ(gxp), log a =
+    -8·softplus(lam)·r, gx = i·u, the scan from h0, y = h·gelu_tanh(g).
+    Returns (y (B, S, W) in u's dtype, h_last (B, W) f32, written into
+    ``h_out`` when given, which may be h0)."""
+    if _plain.get():
+        return _rglru.rg_lru_gated_ref(ga, gxp, u, lam, g, h0, pos, h_out=h_out)
+    return _rglru.rg_lru_gated(ga, gxp, u, lam, g, h0, pos, h_out=h_out)
+
+
 def tt_embed(ids, cores, spec):
     """Rows of a vocab-axis TT embedding table (``spec``: M = V, N = D):
     ids of any int shape (negative ids wrap once, then clamp) -> (..., D)

@@ -8,8 +8,10 @@ RG-LRU, per channel:
     log a_t = -c · softplus(Λ) · r_t          (c = 8)
     h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ u_t)
 
-with the recurrence in ``kernels.dispatch.rglru_scan`` and the attention
-blocks over per-slot rings (``transformer.attn_ring``).  ``params["groups"]``
+with the gate math, the recurrence and the output gate ``y = h ⊙
+gelu_tanh(W_g x)`` in one ``kernels.dispatch.rg_lru_gated`` call (one kernel
+launch on the card) and the attention blocks over per-slot rings
+(``transformer.attn_ring``).  ``params["groups"]``
 is a list of pattern groups (the JAX tree stacks them on a leading axis),
 ``params["tail"]`` the remainder layers; the session state mirrors it.  The
 state is updated in place.  The training/full-sequence bodies (``forward``,
@@ -50,9 +52,6 @@ from .transformer import (
     new_ring,
     ring_width,
 )
-
-C_RGLRU = 8.0
-
 
 # ---------------------------------------------------------------------------
 # Pattern planning, specs, init
@@ -152,16 +151,18 @@ def causal_conv1d(p, u, conv_state=None):
     return y, u_pad[:, -(cw - 1):]
 
 
-def rg_lru(p, specs, u, h0, compute_dtype, positions=None, scan_dtype=None):
-    """u: (B, S, W); h0: (B, W) f32.  Gate math in f32; ``positions`` (B, S)
-    marks padding steps -1 (the state passes through bitwise).  Returns
-    (h (B, S, W) in ``scan_dtype`` (default u's dtype), h_last (B, W) f32)."""
-    f32 = torch.float32
-    r = torch.sigmoid(apply_linear(p["gate_a"], u, specs["gate_a"], compute_dtype).to(f32))
-    i = torch.sigmoid(apply_linear(p["gate_x"], u, specs["gate_x"], compute_dtype).to(f32))
-    log_a = -C_RGLRU * F.softplus(p["lambda"].to(f32)) * r
-    gx = i * u.to(f32)
-    return dispatch.rglru_scan(log_a, gx, h0, positions, scan_dtype=scan_dtype or u.dtype)
+def rg_lru(p, specs, u, g, h, compute_dtype, positions=None):
+    """The RG-LRU and its output gate: u (B, S, W) the conv output, g (B, S,
+    W) the ``in_g`` linear's output, h (B, W) f32 the carried state, updated
+    in place to the last state; ``positions`` (B, S) marks padding steps -1
+    (the state passes through bitwise).  The gate linears run here; the gate
+    math in f32 (r = σ(W_a u), i = σ(W_x u), log a = -c·softplus(Λ)·r,
+    gx = i·u), the scan with h in u's dtype and y = h·gelu_tanh(g) are one
+    ``dispatch.rg_lru_gated`` call.  Returns y (B, S, W) in g's dtype."""
+    ga = apply_linear(p["gate_a"], u, specs["gate_a"], compute_dtype)
+    gxp = apply_linear(p["gate_x"], u, specs["gate_x"], compute_dtype)
+    y, _ = dispatch.rg_lru_gated(ga, gxp, u, p["lambda"], g, h, positions, h_out=h)
+    return y
 
 
 def _conv_state_masked(conv0, u, mask):
@@ -195,17 +196,13 @@ def rec_block_session(p, specs, cfg: ModelConfig, x, state, positions, compute_d
         conv0 = conv0.to(f32) * conv_scale[..., None]
     hid = apply_norm(p["ln1"], x)
     u = apply_linear(p["in_x"], hid, specs["in_x"], compute_dtype)
-    g = F.gelu(apply_linear(p["in_g"], hid, specs["in_g"], compute_dtype).to(f32),
-               approximate="tanh")
+    g = apply_linear(p["in_g"], hid, specs["in_g"], compute_dtype)
     u_conv, _ = causal_conv1d(p, u, conv0)
-    h, h_last = rg_lru(p, specs, u_conv, state["h"].to(f32), compute_dtype,
-                       positions=positions)
-    y = h.to(compute_dtype) * g.to(compute_dtype)
+    y = rg_lru(p, specs, u_conv, g, state["h"], compute_dtype, positions=positions)
     y = apply_linear(p["out"], y, specs["out"], compute_dtype, residual=x).to(x.dtype)
     hid = apply_norm(p["ln2"], y)
     y = apply_mlp(p["mlp"], hid, specs["mlp"], cfg, compute_dtype, residual=y).to(y.dtype)
     new_conv = _conv_state_masked(conv0, u, mask)
-    state["h"].copy_(h_last)
     if conv_scale is None:
         state["conv"].copy_(new_conv.to(state["conv"].dtype))
         return y, state

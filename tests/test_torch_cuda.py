@@ -283,21 +283,40 @@ def test_ring_decode_kernel_many_splits(dev, fill, qpos, window, h, hkv, dh, qdt
     assert not got[qp[:, 0] < 0].any()
 
 
+def _rglru_pos(b, s, dev):
+    """Positions with an idle row 1, row 2 tail-padded from s // 3 and, with
+    four rows or more, row 3 padded across a sub-chunk edge (step 16) and the
+    kernel's panel edge (step 128)."""
+    pos = torch.arange(s, device=dev, dtype=torch.int32)[None].repeat(b, 1)
+    pos[1] = -1                              # an idle row
+    if s > 1:
+        pos[2, s // 3:] = -1                 # a short prompt, tail-padded
+    if b > 3:
+        pos[3, 12:21] = -1
+        pos[3, 120:140] = -1
+    return pos
+
+
+def _pads_repeat(h, pos):
+    """Every padding step's h equals the step before it, bitwise."""
+    pad = pos[:, 1:] < 0
+    assert torch.equal(h[:, 1:][pad], h[:, :-1][pad])
+
+
 @pytest.mark.parametrize("scan_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,w", [(8, 256, 2560), (3, 1, 200), (5, 37, 130)])
+@pytest.mark.parametrize("b,s,w", [(8, 256, 2560), (3, 1, 200), (5, 37, 130), (4, 2, 64),
+                                   (4, 16, 96), (4, 17, 130), (5, 300, 200), (4, 1000, 2560)])
 def test_rglru_scan_kernel(dev, b, s, w, scan_dtype):
     """Real steps within 1e-5 of max|want| (f32 state: expf/sqrtf against
-    torch's exp/sqrt, ~1 ulp a step; bf16 h adds its own rounding of 2^-8);
-    padding steps, idle rows and h_last of idle rows bitwise."""
+    torch's exp/sqrt, ~1 ulp a step, and the kernel's chunked order; bf16 h
+    adds its own rounding of 2^-8); padding steps, idle rows and h_last of
+    idle rows bitwise; h_last is the last h."""
     from repro_torch.kernels import scan_rglru as k
     g = torch.Generator(device=dev).manual_seed(b * s + w)
     log_a = -8.0 * torch.rand(b, s, w, generator=g, device=dev) * 0.5
     gx = torch.randn(b, s, w, generator=g, device=dev)
     h0 = torch.randn(b, w, generator=g, device=dev)
-    pos = torch.arange(s, device=dev, dtype=torch.int32)[None].repeat(b, 1)
-    pos[1] = -1                              # an idle row
-    if s > 1:
-        pos[2, s // 3:] = -1                 # a short prompt, tail-padded
+    pos = _rglru_pos(b, s, dev)
     n0 = k.launches
     h, h_last = k.rglru_scan(log_a, gx, h0, pos, scan_dtype=scan_dtype)
     torch.cuda.synchronize()
@@ -310,11 +329,75 @@ def test_rglru_scan_kernel(dev, b, s, w, scan_dtype):
     _close(h_last, last_want, 1e-5)
     _close(h[real].float(), h_want[real].float(), 1e-5 if scan_dtype == torch.float32
            else 2.0 ** -7)
-    if s > 1:  # the padded tail carries the last real state bitwise
-        n = s // 3
-        assert torch.equal(h[2, n:], h[2, n - 1:n].expand(s - n, w))
-        if scan_dtype == torch.float32:
-            assert torch.equal(h_last[2], h[2, n - 1])
+    _pads_repeat(h, pos)  # the padded tail and the padding runs carry the state bitwise
+    if scan_dtype == torch.float32:
+        assert torch.equal(h_last, h[:, -1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,w", [(1, 130), (1, 2560), (37, 130), (37, 2560), (256, 130),
+                                 (256, 2560)])
+def test_rg_lru_gated_kernel(dev, s, w, dtype):
+    """The fused entry (gates, scan, y = h·gelu_tanh(g)) against its plain
+    version: y within 2^-7 (bf16: one rounding of h and of gelu(g)) or 1e-5
+    (f32) of max|want|, h_last within 1e-5; h_last written in place into h0's
+    storage, the idle row's bitwise h0; three back-to-back calls bitwise
+    equal, and equal to a call that allocates h_last."""
+    from repro_torch.kernels import scan_rglru as k
+    b = 6
+    g = torch.Generator(device=dev).manual_seed(s * 7 + w)
+    ga, gxp, u, gg = (torch.randn(b, s, w, generator=g, device=dev).to(dtype)
+                      for _ in range(4))
+    lam = (0.7 + torch.randn(w, generator=g, device=dev)).to(dtype)
+    h0 = torch.randn(b, w, generator=g, device=dev)
+    pos = _rglru_pos(b, s, dev)
+    y_want, last_want = k.rg_lru_gated_plain(ga, gxp, u, lam, gg, h0, pos)
+    n0 = k.launches
+    runs = []
+    for _ in range(3):
+        state = h0.clone()
+        y, last = k.rg_lru_gated(ga, gxp, u, lam, gg, state, pos, h_out=state)
+        assert last is state
+        runs.append((y, state))
+    y_new, last_new = k.rg_lru_gated(ga, gxp, u, lam, gg, h0, pos)
+    torch.cuda.synchronize()
+    assert k.launches == n0 + 4
+    y, last = runs[0]
+    for yy, ll in runs[1:] + [(y_new, last_new)]:
+        assert torch.equal(yy, y) and torch.equal(ll, last)
+    assert y.dtype == dtype and last.dtype == torch.float32
+    _close(last, last_want, 1e-5)
+    _close(y, y_want, 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    assert torch.equal(last[1], h0[1])
+
+
+def test_griffin_session_launches_one_scan_a_recurrent_layer(dev):
+    """A prefill chunk and a decode step of reduced recurrentgemma-2b (head
+    dim 64, the ring kernels' smallest) on the card launch the RG-LRU kernel
+    once a recurrent layer and no plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import scan_rglru as k
+    from repro_torch.models import griffin
+    from repro_torch.models.sessions import SessionSpec, make_session
+    cfg = get_config("recurrentgemma-2b", reduced=True).replace(head_dim=64)
+    params = griffin.init_lm(cfg, seed=0, device=dev)
+    n_rec = sum(kind == "rec" for kind, _ in griffin._layers(cfg, params))
+    sess = make_session(cfg, SessionSpec(slots=2, max_len=64, prefill_chunk=8,
+                                         cache_dtype="bfloat16"), device=dev)
+    state = sess.init_state()
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), device=dev, dtype=torch.int32, generator=g)
+    pos = torch.arange(8, device=dev, dtype=torch.int32)[None].repeat(2, 1)
+    pos[1, 5:] = -1
+    n0, p0 = k.launches, k.plain_cuda_calls
+    logits, state = sess.prefill_chunk(params, state, toks, pos)
+    torch.cuda.synchronize()
+    assert k.launches == n0 + n_rec
+    logits, state = sess.decode_step(params, state, toks[:, :1].contiguous(),
+                                     torch.tensor([8, -1], device=dev, dtype=torch.int32))
+    torch.cuda.synchronize()
+    assert k.launches == n0 + 2 * n_rec and k.plain_cuda_calls == p0
+    assert torch.isfinite(logits).all()
 
 
 def test_unembed_logits_in_f32_from_bf16_operands(dev):

@@ -1,26 +1,35 @@
 #!/usr/bin/env python3
-"""Device-time probes of the port's decode attention and wkv kernels on one
-NVIDIA H100, beside what ``chip_smoke.py`` measures.
+"""Device-time probes of the port's decode attention, wkv and RG-LRU kernels
+on one NVIDIA H100, beside what ``chip_smoke.py`` measures.
 
 ``chip_smoke.py`` times a kernel by CUDA events over back-to-back calls;
 under ~0.05 ms a call that figure carries the wrapper's host time.  These
 probes read each call's device time from ``torch.profiler`` instead.  Run
 from the repository root on a machine with the card:
 
-    python3 tools/port_probe.py device-times [TREE]   # decode attention + wkv phases
+    python3 tools/port_probe.py device-times [TREE]   # decode attention, wkv, RG-LRU phases
+    python3 tools/port_probe.py griffin [TREE]        # recurrentgemma-2b tick and chunk
     python3 tools/port_probe.py splits 128 256 384    # paged decode by entries a split
     python3 tools/port_probe.py wkv-phases            # wkv prefill, one phase switched off
+    python3 tools/port_probe.py rglru-variants        # RG-LRU prefill, design variants
 
-``device-times`` runs the decode attention and wkv phases of
+``device-times`` runs the decode attention, wkv and RG-LRU phases of
 ``chip_smoke.py`` from TREE (default: this checkout; another checkout, e.g.
 an earlier commit unpacked with ``git archive``, gives a comparison on the
 same card) and prints the kernel's, the plain version's and the library
-call's device time a call.  ``splits`` runs the paged decode phases with the
+call's device time a call.  ``griffin`` serves recurrentgemma-2b at full
+width from TREE and profiles decode ticks and a prefill chunk: device
+kernels a call, device time, wall time and the RG-LRU kernel's device time
+a launch.  ``splits`` runs the paged decode phases with the
 split length forced.  ``wkv-phases`` builds copies of ``csrc/wkv_scan.cu``
 with one phase of the chunk loop switched off (their outputs are wrong by
 design) into a temporary directory and times each at rwkv6-7b's prefill
-shape, to show where a chunk's time goes.  Every line carries the card's
-name and power limit.
+shape, to show where a chunk's time goes.  ``rglru-variants`` likewise
+builds ``csrc/rglru_scan.cu`` as committed, with one design choice undone
+(torch's exact sigmoid and tanh in the gated entry; the pair's arithmetic,
+which leaves wrong output) and with other CTA shapes, and times both entries
+at griffin's prefill shape.  Every line
+carries the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -37,6 +46,12 @@ def card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     return out.splitlines()[0] if out else "nvidia-smi: n/a"
+
+
+def sm_clock() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    return out.splitlines()[0] if out else "n/a"
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -103,7 +118,72 @@ def device_times(tree: Path) -> None:
         for int8 in (False, True):
             s.wkv_phase(steps, int8)
             report(s, tag, f"wkv S={steps} {'int8' if int8 else 'f32'} state")
+    for steps in (1, 256):
+        s.rglru_phase(steps)
+        report(s, tag, f"rglru_scan S={steps} f32 in, bf16 h")
+        if hasattr(s, "rglru_gated_phase"):  # trees before the fused entry lack it
+            s.rglru_gated_phase(steps)
+            report(s, tag, f"rglru_scan gated S={steps} bf16 in, bf16 y")
     print(f"[{tag}] failures: {s.failures}", flush=True)
+
+
+def griffin(tree: Path, steps: int = 5) -> None:
+    """recurrentgemma-2b at full width from ``tree``, 8 slots at ~1 K context
+    (``chip_smoke``'s profile geometry): ``steps`` decode ticks and one
+    256-token prefill chunk, each profiled twice."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cs, s = smoke(tree)
+    from repro_torch.configs import get_config
+    from repro_torch.models import griffin as gm
+    from repro_torch.serve.steps import serve_config_of
+    cfg = serve_config_of(get_config("recurrentgemma-2b"))
+    params = gm.init_lm(cfg, seed=cs.SEED, device="cuda")
+    sess, state = s.session(cfg, 4096)
+    dev = torch.device("cuda")
+    toks = torch.randint(0, cfg.vocab_size, (8, 256), device=dev, dtype=torch.int32,
+                         generator=s.gen)
+    pos = torch.arange(256, device=dev, dtype=torch.int32)[None].repeat(8, 1)
+    cols = torch.full((8,), 255, device=dev)
+    for c in range(4):
+        _, state = sess.prefill_chunk(params, state, toks, pos + 256 * c, logit_cols=cols)
+    dtok = toks[:, :1].contiguous()
+    at = 1024
+
+    def decode():
+        nonlocal state, at
+        for _ in range(steps):
+            _, state = sess.decode_step(params, state, dtok, torch.full(
+                (8,), at, device=dev, dtype=torch.int32))
+            at += 1
+
+    def chunk():
+        nonlocal state, at
+        _, state = sess.prefill_chunk(params, state, toks, pos + at, logit_cols=cols)
+        at += 256
+
+    decode()
+    torch.cuda.synchronize()
+    for rep in range(2):
+        for what, run, n in (("decode tick", decode, steps), ("prefill chunk", chunk, 1)):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            clock = sm_clock()
+            events = [e for e in prof.key_averages() if e.device_time_total > 0]
+            kern = [e for e in events if not e.key.startswith(("Memcpy", "Memset"))]
+            dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+            rg = [e for e in kern if "rglru_" in e.key]
+            rg_text = "; ".join(f"{e.key[:40]} {e.self_device_time_total / e.count / 1e3:.4f} ms"
+                                f" ({e.count / n:.0f} a call)" for e in rg)
+            print(f"[{tree.name} griffin] {card()}: {what} (pass {rep + 1}): device kernels "
+                  f"{sum(e.count for e in kern) / n:.1f} a call, device {dev_ms:.3f} ms, wall "
+                  f"{wall / n * 1e3:.3f} ms; RG-LRU device time a launch: {rg_text}; SM clock, "
+                  f"power just after: {clock}", flush=True)
 
 
 def splits(lengths: list[int]) -> None:
@@ -141,28 +221,8 @@ WKV_PHASES = {
 
 def wkv_phases() -> None:
     import torch
-    sys.path.insert(0, str(ROOT / "src"))
+    libs = build_variants("wkv_scan.cu", WKV_PHASES)
     from repro_torch.kernels import _build
-    csrc = ROOT / "src" / "repro_torch" / "csrc"
-    src = (csrc / "wkv_scan.cu").read_text()
-    tmp = Path(tempfile.mkdtemp(prefix="wkv_phases-"))
-    libs, procs = {}, []
-    for i, (name, patches) in enumerate(WKV_PHASES.items()):
-        d = tmp / str(i)
-        d.mkdir()
-        text = src
-        for old, new in patches:
-            if old not in text:
-                raise SystemExit(f"wkv-phases: the guard of '{name}' is not in wkv_scan.cu")
-            text = text.replace(old, new)
-        (d / "wkv_scan.cu").write_text(text)
-        (d / "common.cuh").write_text((csrc / "common.cuh").read_text())
-        libs[name] = d / "lib.so"
-        procs.append(subprocess.Popen([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
-                                       "-Xcompiler", "-fPIC", "-shared", "-o", str(libs[name]),
-                                       str(d / "wkv_scan.cu")]))
-    if any([p.wait() for p in procs]):  # wait for every build before judging
-        raise SystemExit("wkv-phases: nvcc failed")
     g = torch.Generator(device="cuda").manual_seed(0)
     b, s, h, hd = 8, 256, 64, 64
     r, k, v = (torch.randn(b, s, h, hd, generator=g, device="cuda").bfloat16() for _ in range(3))
@@ -171,8 +231,8 @@ def wkv_phases() -> None:
     s0 = torch.randn(b, h, hd, hd, generator=g, device="cuda")
     y, s1 = torch.empty(b, s, h, hd, device="cuda"), torch.empty_like(s0)
     for rep in range(2):
-        for name, path in libs.items():
-            fn = ctypes.CDLL(str(path)).rt_wkv_scan
+        for name, lib in libs.items():
+            fn = lib.rt_wkv_scan
             fn.argtypes = _build.SIGNATURES["rt_wkv_scan"]
 
             def call(i, fn=fn):
@@ -186,6 +246,130 @@ def wkv_phases() -> None:
                   flush=True)
 
 
+# design choices of csrc/rglru_scan.cu, each undone by a text patch
+RGLRU_VARIANTS = {
+    "as committed": [],
+    "exact sigmoid and tanh": [
+        ("return __fdividef(1.0f, 1.0f + __expf(-x));", "return 1.0f / (1.0f + expf(-x));"),
+        ("return __fdividef(x, 1.0f + __expf(-2.0f * z));",
+         "return 0.5f * x * (1.0f + tanhf(z));")],
+    "unit-major grid": [("const int p = blockIdx.x / units, unit = blockIdx.x % units;",
+                         "const int p = blockIdx.x % np, unit = blockIdx.x / np;")],
+    # wrong output by design: the pair's arithmetic taken out, the bytes kept
+    "no exp or sqrt in the pair": [("  a = expf(la);\n  b = __fmul_rn(sqrtf(fmaxf(1.0f - expf(2.0f "
+                                    "* la), 1e-12f)), gx);", "  a = la;\n  b = gx;")],
+}
+# CTA shapes: channels a CTA x sub-chunks a panel
+for _cw, _sub, _nsub in ((64, 16, 4), (128, 16, 1), (256, 16, 1), (32, 8, 8), (32, 8, 4),
+                         (32, 4, 16)):
+    RGLRU_VARIANTS[f"{_cw} channels x {_nsub} sub-chunks of {_sub} steps a CTA"] = [
+        ("constexpr int CW = 32;", f"constexpr int CW = {_cw};"),
+        ("constexpr int SUB = 16;", f"constexpr int SUB = {_sub};"),
+        ("constexpr int NSUB = 4;", f"constexpr int NSUB = {_nsub};")]
+
+
+def build_variants(source: str, variants: dict) -> dict:
+    """``{name: ctypes library}`` of ``csrc/<source>`` with each variant's
+    patches applied, built by parallel nvcc calls into a temporary directory."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    src = (csrc / source).read_text()
+    tmp = Path(tempfile.mkdtemp(prefix="variants-"))
+    libs, procs = {}, []
+    for i, (name, patches) in enumerate(variants.items()):
+        d = tmp / str(i)
+        d.mkdir()
+        text = src
+        for old, new in patches:
+            if old not in text:
+                raise SystemExit(f"variant '{name}': '{old}' is not in {source}")
+            text = text.replace(old, new)
+        (d / source).write_text(text)
+        (d / "common.cuh").write_text((csrc / "common.cuh").read_text())
+        libs[name] = d / "lib.so"
+        procs.append(subprocess.Popen([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+                                       "-Xcompiler", "-fPIC", "-shared", "-o", str(libs[name]),
+                                       str(d / source)]))
+    if any([p.wait() for p in procs]):  # wait for every build before judging
+        raise SystemExit(f"variants of {source}: nvcc failed")
+    return {name: ctypes.CDLL(str(path)) for name, path in libs.items()}
+
+
+def rglru_variants() -> None:
+    import torch
+    libs = build_variants("rglru_scan.cu", RGLRU_VARIANTS)
+    from repro_torch.kernels import _build
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, s, w = 8, 256, 2560
+    bf16 = torch.bfloat16
+    la = -8.0 * torch.rand(b, s, w, generator=g, device="cuda") * 0.5
+    gx = torch.randn(b, s, w, generator=g, device="cuda")
+    ga, gxp, u, gg = (torch.randn(b, s, w, generator=g, device="cuda").to(bf16)
+                      for _ in range(4))
+    lam = (0.7 + torch.randn(w, generator=g, device="cuda")).to(bf16)
+    h0 = torch.randn(b, w, generator=g, device="cuda")
+    pos = torch.arange(s, device="cuda", dtype=torch.int32)[None].repeat(b, 1)
+    h, y = torch.empty(b, s, w, device="cuda", dtype=bf16), torch.empty_like(ga)
+    h_last = torch.empty_like(h0)
+    h0x, hlx = torch.randn(b * s // 8, w, device="cuda"), torch.empty(b * s // 8, w, device="cuda")
+    st = _build.stream(h0)
+    epoch = 0
+    for rep in range(2):
+        for name, lib in libs.items():
+            scan, gated = lib.rt_rglru_scan, lib.rt_rglru_gated
+            scan.argtypes = _build.SIGNATURES["rt_rglru_scan"]
+            gated.argtypes = _build.SIGNATURES["rt_rglru_gated"]
+            lib.rt_rglru_workspace_bytes.restype = ctypes.c_long
+            nbytes = lib.rt_rglru_workspace_bytes(b, s, w)  # the variant's own panels
+            ws = torch.zeros(max(nbytes, 1), dtype=torch.uint8, device="cuda")
+
+            def carry(ws=ws, nbytes=nbytes):
+                nonlocal epoch
+                epoch += 1
+                return ws.data_ptr(), nbytes, epoch
+
+            def call_scan(i, fn=scan, carry=carry):
+                _build.check(fn(la.data_ptr(), gx.data_ptr(), h0.data_ptr(), pos.data_ptr(),
+                                h.data_ptr(), h_last.data_ptr(), *carry(), b, s, w, 1, st),
+                             "rglru_scan")
+
+            def call_gated(i, fn=gated, carry=carry):
+                _build.check(fn(ga.data_ptr(), gxp.data_ptr(), u.data_ptr(), gg.data_ptr(),
+                                lam.data_ptr(), h0.data_ptr(), pos.data_ptr(), y.data_ptr(),
+                                h_last.data_ptr(), *carry(), b, s, w, 1, 1, st),
+                             "rglru_scan (gated)")
+
+            # the same bytes as slots of one panel each: no carry
+            s1 = max(n for n in (8, 16, 32, 64, 128, 256)
+                     if lib.rt_rglru_workspace_bytes(b * s // n, n, w) == 0)
+
+            def call_one(i, fn=scan, s1=s1):
+                _build.check(fn(la.data_ptr(), gx.data_ptr(), h0x.data_ptr(), None, h.data_ptr(),
+                                hlx.data_ptr(), None, 0, 0, b * s // s1, s1, w, 1, st),
+                             "rglru_scan")
+
+            print(f"[rglru-variants] {card()}: prefill B={b} S={s} W={w}, {name}: device ms a "
+                  f"call, f32 in and bf16 h {device_ms(call_scan):.4f}, gated bf16 "
+                  f"{device_ms(call_gated):.4f}; f32 in as {b * s // s1} x {s1} steps (no "
+                  f"carry) {device_ms(call_one):.4f} (pass {rep + 1})", flush=True)
+    # yardsticks of the card's rate: the gated entry without a carry, two PyTorch kernels
+    lib = libs["as committed"]
+    lib.rt_rglru_gated.argtypes = _build.SIGNATURES["rt_rglru_gated"]
+    ga4, gxp4, u4, gg4, y4 = (t.view(32, 64, w) for t in (ga, gxp, u, gg, y))
+    one_gated = device_ms(lambda i: _build.check(lib.rt_rglru_gated(
+        ga4.data_ptr(), gxp4.data_ptr(), u4.data_ptr(), gg4.data_ptr(), lam.data_ptr(),
+        h0x.data_ptr(), None, y4.data_ptr(), hlx.data_ptr(), None, 0, 0, 32, 64, w, 1, 1, st),
+        "rglru_scan (gated)"))
+    o32 = torch.empty_like(la)
+    mul = device_ms(lambda i: torch.mul(la, gx, out=o32))
+    cast = device_ms(lambda i: h.copy_(la))
+    n = la.numel()
+    print(f"[rglru-variants] {card()}: as committed, gated bf16 as 32 x 64 steps (no carry, "
+          f"{n * 10e-6:.1f} MB) {one_gated:.4f} ms; torch.mul f32 ({n * 12e-6:.1f} MB) "
+          f"{mul:.4f} ms; f32 -> bf16 copy_ ({n * 6e-6:.1f} MB) {cast:.4f} ms", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -195,10 +379,14 @@ def main() -> int:
     what, args = (sys.argv[1], sys.argv[2:]) if len(sys.argv) > 1 else ("", [])
     if what == "device-times":
         device_times(Path(args[0]).resolve() if args else ROOT)
+    elif what == "griffin":
+        griffin(Path(args[0]).resolve() if args else ROOT)
     elif what == "splits":
         splits([int(a) for a in args] or [128, 256, 384, 512])
     elif what == "wkv-phases":
         wkv_phases()
+    elif what == "rglru-variants":
+        rglru_variants()
     else:
         print(__doc__, file=sys.stderr)
         return 2
