@@ -14,12 +14,16 @@ then:
    card's bound; each prefill attention phase also prints the key tiles its
    flash tile walks against the tiles its CTAs would walk without the
    visible-tile rule;
-2. for each of the four serving paths — llama2-7b (paged K/V),
+2. for each of the five serving paths — llama2-7b (paged K/V),
    recurrentgemma-2b (griffin: RG-LRU state and windowed attention rings),
    llama2-7b-tt-embed (llama2-7b's paged path with its embedding table a
-   vocab-axis TT, on the same params with TT cores swapped in for the table)
-   and rwkv6-7b (wkv matrix state and token-shift tails) — at full width and
-   depth:
+   vocab-axis TT, on the same params with TT cores swapped in for the table),
+   rwkv6-7b (wkv matrix state and token-shift tails) and
+   chatglm3-6b-compressed (ChatGLM3-6B compressed by the port itself: a
+   planted TT + int4 tree made dense in bf16 on the card, ``compress_model``
+   there with each TT linear's recovery held to a bound, the int4 leaves
+   bitwise the CPU's, then ``save_compressed`` and ``load_compressed``
+   bitwise, and the loaded tree served) — at full width and depth:
    a. a logits check at the serve phase's geometry — 8 slots prefilling the
       serve phase's 8 prompts in 256-token chunks, then 4 decode steps,
       through the kernels against the same steps through the plain versions
@@ -95,6 +99,8 @@ PATH_KERNELS = {
     "llama2-7b-tt-embed": ("tt_embed", "tt_linear", "int4_matmul", "paged_attention",
                            "prefill_attention"),
     "rwkv6-7b": ("tt_linear", "int4_matmul", "wkv_scan"),
+    "chatglm3-6b-compressed": ("tt_linear", "int4_matmul", "paged_attention",
+                               "prefill_attention"),
 }
 
 
@@ -114,6 +120,7 @@ def reset_counters():
         m = importlib.import_module(f"repro_torch.kernels.{mod}")
         setattr(m, launch, 0)
         setattr(m, plain, 0)
+    importlib.import_module("repro_torch.kernels.tt_linear").staged_launches = 0
 
 
 def sm_clock() -> str:
@@ -212,18 +219,24 @@ class Smoke:
                                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
 
     # -- kernel phases --------------------------------------------------------
-    def tt_phase(self, arch, role, spec, b, epi=None):
+    def tt_phase(self, arch, role, spec, b, epi=None, core_dtype=None):
         """``epi``: the call site's epilogue (default: silu on gate, none on
-        up, the block's residual elsewhere)."""
+        up, the block's residual elsewhere).  ``core_dtype`` f32: the cores
+        ``compress_model`` writes, which the fused kernel rounds to bf16 as it
+        loads them."""
         torch = self.torch
         from repro_torch.kernels import tt_linear as k
-        cores = [self.randn(*s, dtype=torch.bfloat16, scale=1 / math.sqrt(s[0]))
+        core_dtype = core_dtype or torch.bfloat16
+        cores = [self.randn(*s, dtype=core_dtype, scale=1 / math.sqrt(s[0]))
                  for s in spec.core_matrix_shapes()]
         x = self.randn(b, spec.n_in, dtype=torch.bfloat16)
         if epi is None:
             epi = {"gate": dict(activation="silu"), "up": {}}.get(
                 role, dict(residual=self.randn(b, spec.n_out, dtype=torch.bfloat16)))
+        staged = k.staged_launches
         got = k.tt_linear(x, cores, spec, **epi)
+        if k.staged_launches != staged:
+            self.failures.append(f"tt_linear {arch} {role} B={b}: took the staged kernel")
         want = k.tt_linear_ref(x, cores, spec, **epi)
         ms = self.time_ms(lambda i: k.tt_linear(x, cores, spec, **epi))
         plain_ms = self.time_ms(lambda i: k.tt_linear_ref(x, cores, spec, **epi), iters=5)
@@ -231,14 +244,15 @@ class Smoke:
         w = k.tt_linear_ref(eye, [c.float() for c in cores], spec).to(torch.bfloat16)
         lib_ms = self.time_ms(lambda i: torch.matmul(x, w))
         del eye, w
-        nbytes = 2 * (x.numel() + b * spec.n_out + sum(c.numel() for c in cores)
-                      + (b * spec.n_out if "residual" in epi else 0))
+        nbytes = 2 * (x.numel() + b * spec.n_out + (b * spec.n_out if "residual" in epi else 0)) \
+            + sum(c.numel() * c.element_size() for c in cores)
         # the operations of the cheapest contraction order (the staged order
         # at llama2 gate/up, a two-half split elsewhere)
         orders = k.tt_order_flops(spec)
         order = min(orders, key=orders.get)
         plan = k.contraction_plan(spec)
-        self.record("tt_linear", f"{arch} {role} B={b}", got, want, 3e-2,
+        cores_text = " f32 cores" if core_dtype == torch.float32 else ""
+        self.record("tt_linear", f"{arch} {role} B={b}{cores_text}", got, want, 3e-2,
                     f"bf16: the plain version rounds each of the {spec.d} stages to bf16, the "
                     f"kernel its operators and its one intermediate (plan h={plan.h} "
                     f"{'left' if plan.left_first else 'right'} first); bound by the {order} "
@@ -838,11 +852,13 @@ class Smoke:
         # engine and its state are freed when this phase returns
         del eng._decode_dispatch, eng._decode_collect
         counts = counters()
+        from repro_torch.kernels import tt_linear
+        staged = tt_linear.staged_launches
         launches = {k: n for k, (n, _) in counts.items()}
         plain = {k: n for k, (_, n) in counts.items()}
         ttft = np.array([r.t_first - r.t_submit for r in reqs])
         print(f"[serve {path}] prompts={[len(p) for p in prompts]} launches={launches} "
-              f"plain_calls_on_cuda={plain}", flush=True)
+              f"plain_calls_on_cuda={plain} staged_tt_linear_launches={staged}", flush=True)
         print(f"[serve {path}] {card}: TTFT p50={np.median(ttft) * 1e3:.1f} ms "
               f"max={ttft.max() * 1e3:.1f} ms; decode {dec['tokens']} tokens in "
               f"{dec['t']:.3f} s = {dec['tokens'] / dec['t']:.1f} tokens/s; "
@@ -856,6 +872,7 @@ class Smoke:
             "every kernel of the path launched": all(
                 launches[k] > 0 for k in PATH_KERNELS[path]),
             "no plain version on CUDA": not any(plain.values()),
+            "no staged tt_linear launch": staged == 0,
             "tokens in vocab": all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
         }
         for what, good in checks.items():
@@ -863,6 +880,199 @@ class Smoke:
                 self.failures.append(f"serve {path}: {what}")
         print(f"[serve {path}] checks: {checks}", flush=True)
         return launches
+
+    # -- the compressed path: compress, checkpoint, reload ----------------------
+    def compressed_params(self, cfg, prompts, card):
+        """[compress] and [checkpoint]: plant a TT + int4 ChatGLM3-6B (random
+        bf16 cores and int4 weights from the seed), make it a dense bf16 tree
+        on the card (TT linears reconstructed, int4 dequantized), free it, and
+        run the port's ``compress_model`` there.  Each TT linear's recovered
+        weight must sit within (1 + sqrt(d - 1)) ||bf16(W) - W|| of the
+        planted W (tests/test_torch_compress.py derives the factor); sampled
+        int4 leaves must equal the CPU's ``quantize_int4`` bitwise.  Then the
+        tree goes through ``save_compressed`` and ``load_compressed`` and every
+        leaf must come back bitwise.  Returns the loaded params and the
+        planted tree's logits of the first prefill chunk of ``prompts``."""
+        import shutil
+        import tempfile
+        torch = self.torch
+        from repro_torch.checkpoint.store import _flatten_with_paths
+        from repro_torch.configs import get_config
+        from repro_torch.core import compress, quant, ttd
+        from repro_torch.models import transformer
+        path = "chatglm3-6b-compressed"
+        sync = torch.cuda.synchronize
+        t0 = time.perf_counter()
+        planted = transformer.init_lm(cfg, seed=SEED, device=self.dev)
+        tok, pos = self._check_inputs(cfg, prompts, 0)[1][0]
+        sess, state = self.session(cfg, 2048)
+        lg, state = sess.prefill_chunk(planted, state, tok, pos)
+        planted_logits = lg[pos >= 0]
+        del sess, state, lg
+        specs = transformer.specs_tree(cfg)
+        dense_cfg = cfg.replace(ttd=dataclasses.replace(cfg.ttd, enabled=False),
+                                quant=dataclasses.replace(cfg.quant, enabled=False))
+        tt_cores, rounding, layers = {}, {}, []
+        for seg, seg_specs in zip(planted["segments"], specs["segments"]):
+            for p, sp in zip(seg, seg_specs):
+                li = len(layers)
+                layer = {"ln1": p["ln1"], "ln2": p["ln2"], "attn": {}, "mlp": {}}
+                for group in ("attn", "mlp"):
+                    for nm, lsp in sp[group].items():
+                        lin = p[group][nm]
+                        if lsp.kind == "tt":
+                            tt_cores[li, nm] = lin["cores"]
+                            w = ttd.tt_reconstruct(ttd.matrices_to_cores(
+                                [c.double() for c in lin["cores"]], lsp.tt), lsp.tt)
+                            w16 = w.to(torch.bfloat16)
+                            rounding[li, nm] = (torch.linalg.norm(w16.double() - w)
+                                                / torch.linalg.norm(w)).item()
+                        else:
+                            w16 = quant.dequantize_int4(lin, torch.float32).to(torch.bfloat16)
+                        layer[group][nm] = {"w": w16.T.contiguous(),
+                                            **({"b": lin["b"]} if "b" in lin else {})}
+                        del w16
+                layers.append(layer)
+        dense = {k: v for k, v in planted.items() if k != "segments"}
+        dense["segments"] = [layers]
+        del planted, layers
+        torch.cuda.empty_cache()
+        sync()
+        dense_bytes = sum(t.numel() * t.element_size() for _, t in _flatten_with_paths(dense))
+        print(f"[compress] {path}: planted {cfg.n_layers}-layer tree (TT rank {cfg.ttd.rank} on "
+              f"blocks "
+              f"{cfg.ttd.first_tt_block}-{cfg.n_layers - 1}, int4 g128 elsewhere) made dense in "
+              f"bf16 on the card in {time.perf_counter() - t0:.1f} s: {dense_bytes} bytes; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+
+        times = {"tt": 0.0, "int4": 0.0, "dense": 0.0}
+        calls = {"tt": 0, "int4": 0, "dense": 0}
+        convert = compress._convert_linear
+
+        def timed(p, spec, method):
+            sync()
+            t = time.perf_counter()
+            out = convert(p, spec, method)
+            sync()
+            times[spec.kind] += time.perf_counter() - t
+            calls[spec.kind] += 1
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        compress._convert_linear = timed
+        try:
+            t0 = time.perf_counter()
+            tree = compress.compress_model(dense, dense_cfg, cfg)
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            compress._convert_linear = convert
+        print(f"[compress] {path}: {card}: compress_model on the card in {wall:.2f} s: TT-SVD "
+              f"{times['tt']:.2f} s for {calls['tt']} linears, int4 {times['int4']:.3f} s for "
+              f"{calls['int4']} linears; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the dense "
+              "tree)", flush=True)
+
+        ftb = cfg.ttd.first_tt_block
+        worst = (-1.0, None)
+        for (li, nm), cores in tt_cores.items():
+            group = "attn" if nm == "wo" else "mlp"
+            lsp = specs["segments"][1][0][group][nm].tt
+            got = tree["segments"][1][li - ftb][group][nm]["cores"]
+            if any(c.dtype != torch.float32 for c in got):
+                self.failures.append(f"compress {path}: layer {li} {nm} cores not f32")
+            w = ttd.tt_reconstruct(ttd.matrices_to_cores([c.double() for c in cores], lsp), lsp)
+            rec = ttd.tt_reconstruct(ttd.matrices_to_cores([c.double() for c in got], lsp), lsp)
+            err = (torch.linalg.norm(rec - w) / torch.linalg.norm(w)).item()
+            factor = 1 + math.sqrt(lsp.d - 1)
+            ratio = err / rounding[li, nm]
+            if not ratio <= factor:
+                self.failures.append(f"compress {path}: layer {li} {nm} recovered at {err:.3e}, "
+                                     f"bound {factor * rounding[li, nm]:.3e}")
+            if ratio > worst[0]:
+                worst = (ratio, (li, nm, err, rounding[li, nm], factor))
+            del w, rec
+        li, nm, err, rnd, factor = worst[1]
+        print(f"[compress] {path}: {len(tt_cores)} TT linears recovered from their bf16 dense "
+              f"weights; worst layer {li} {nm}: ||W_rec - W||/||W|| {err:.3e} against "
+              f"||bf16(W) - W||/||W|| {rnd:.3e} (ratio {worst[0]:.3f}, bound "
+              f"{factor:.3f} = 1 + sqrt(d - 1)) {'ok' if worst[0] <= factor else 'FAIL'}",
+              flush=True)
+        same, sampled = 0, ((0, "attn", "wq"), (0, "attn", "wk"), (ftb // 2, "mlp", "gate"),
+                            (ftb - 1, "mlp", "down"), (cfg.n_layers - 1, "attn", "wv"))
+        for li, group, nm in sampled:
+            seg, off = (0, li) if li < ftb else (1, li - ftb)
+            got = tree["segments"][seg][off][group][nm]
+            want = quant.quantize_int4(dense["segments"][0][li][group][nm]["w"].cpu().float().T,
+                                       cfg.quant.group_size)
+            for leaf in ("qweight", "scales"):
+                if torch.equal(got[leaf].cpu(), want[leaf]):
+                    same += 1
+                else:
+                    self.failures.append(f"compress {path}: layer {li} {nm} {leaf} differs "
+                                         "from the CPU's quantize_int4")
+        print(f"[compress] {path}: int4 leaves of {len(sampled)} sampled linears (layers "
+              f"{sorted({li for li, _, _ in sampled})}) bitwise equal to quantize_int4 on the "
+              f"CPU: {same} of {2 * len(sampled)} {'ok' if same == 2 * len(sampled) else 'FAIL'}",
+              flush=True)
+        del dense, tt_cores
+        torch.cuda.empty_cache()
+
+        ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+        try:
+            t0 = time.perf_counter()
+            out = compress.save_compressed(ckpt, tree, cfg)
+            save_s = time.perf_counter() - t0
+            disk = sum(f.stat().st_size for f in out.iterdir())
+            t0 = time.perf_counter()
+            params, cfg2 = compress.load_compressed(ckpt, device=self.dev)
+            sync()
+            load_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        pairs = list(zip(_flatten_with_paths(params), _flatten_with_paths(tree)))
+        bad = [na for (na, a), (nb, b) in pairs
+               if na != nb or a.device != b.device or a.dtype != b.dtype
+               or not torch.equal(a, b)]
+        ok = not bad and cfg2 == cfg and len(pairs) == len(_flatten_with_paths(tree))
+        if not ok:
+            self.failures.append(f"checkpoint {path}: {len(bad)} leaves differ ({bad[:3]}), "
+                                 f"config equal {cfg2 == cfg}")
+        print(f"[checkpoint] {path}: {card}: save_compressed {save_s:.2f} s, {disk} bytes on "
+              f"disk; load_compressed onto the card {load_s:.2f} s; {len(pairs)} leaves bitwise "
+              f"equal, config equal: {'ok' if ok else 'FAIL'}", flush=True)
+        rep = compress.compression_report(get_config("chatglm3-6b"))
+        deploy = compress.compression_report(cfg, param_bits=16).network_cr_bits
+        pins = abs(rep.block_cr - 10.72) < 0.01 and abs(rep.network_cr - 1.94) < 0.005 \
+            and abs(deploy - 2.09) < 0.005
+        if not pins:
+            self.failures.append(f"checkpoint {path}: compression_report off Table I")
+        print(f"[checkpoint] {path}: compression_report: block CR {rep.block_cr:.2f}, network "
+              f"CR {rep.network_cr:.2f} (Table I: 10.72, 1.94), deploy bits-CR {deploy:.2f} "
+              f"(pinned 2.09) {'ok' if pins else 'FAIL'}; on disk the int4 + TT checkpoint "
+              f"holds {disk} bytes against {dense_bytes} bytes of the dense bf16 tree "
+              f"({dense_bytes / disk:.2f}x; f32 TT cores, the bf16 embedding and head "
+              "included)", flush=True)
+        del tree
+        torch.cuda.empty_cache()
+        return params, (tok, pos, planted_logits)
+
+    def planted_vs_loaded(self, cfg, params, planted, path):
+        """The loaded tree's logits of the first prefill chunk against the
+        planted tree's (a number to record: compression changed the weights
+        by the bf16 rounding and the rank-16 truncation of it)."""
+        tok, pos, want = planted
+        sess, state = self.session(cfg, 2048)
+        lg, state = sess.prefill_chunk(params, state, tok, pos)
+        got = lg[pos >= 0]
+        d = (got - want).abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        print(f"[logits {path}] first prefill chunk ({got.shape[0]} positions), loaded against "
+              f"planted tree: max|d| {d:.4f} of max|planted| {want.abs().max().item():.4f}; "
+              f"top-1 agreement {agree:.4f}", flush=True)
+        del sess, state, lg
 
     # -- decode-step and prefill-chunk profile ----------------------------------
     def profile(self, cfg, params, card, max_len, path, steps: int = 5):
@@ -975,6 +1185,8 @@ def main() -> int:
             spec = linear_spec(cfg, role, n_in, n_out).tt
             for b in (8, 2048):
                 s.tt_phase(arch, role.replace("mlp_", ""), spec, b)
+                if arch == "chatglm3-6b" and role == "mlp_gate":  # compress_model's cores
+                    s.tt_phase(arch, "gate", spec, b, core_dtype=torch.float32)
     rw = serve_config_of(get_config("rwkv6-7b"))
     for role, n_in, n_out, epi in (("tm_out", 4096, 4096, None),
                                    ("cm_key", 4096, rw.d_ff, dict(activation="relu2")),
@@ -1019,15 +1231,28 @@ def main() -> int:
     models = {"dense": transformer, "griffin": griffin, "rwkv": rwkv}
     params = None
     # (path, arch, max_len, prompt lengths in [lo, hi)); the TT-embed path
-    # reuses llama2-7b's params with TT embedding cores in place of the table
+    # reuses llama2-7b's params with TT embedding cores in place of the table;
+    # the compressed path serves what the port's compress_model made and
+    # load_compressed read back
     for path, arch, max_len, lo, hi in (("llama2-7b", "llama2-7b", 2048, 64, 1537),
                                         ("llama2-7b-tt-embed", "llama2-7b", 2048, 64, 1537),
                                         ("recurrentgemma-2b", "recurrentgemma-2b", 4096, 64,
                                          3073),
-                                        ("rwkv6-7b", "rwkv6-7b", 2048, 64, 1537)):
+                                        ("rwkv6-7b", "rwkv6-7b", 2048, 64, 1537),
+                                        ("chatglm3-6b-compressed", "chatglm3-6b", 2048, 64,
+                                         1537)):
         cfg = serve_config_of(get_config(arch))
+        lens = s.rng.integers(lo, hi, 8)
+        if cfg.window and lens.max() <= cfg.window + 256:  # one prompt wraps its ring
+            lens[int(lens.argmax())] = s.rng.integers(cfg.window + 257, hi)
+        prompts = [[int(t) for t in s.rng.integers(0, cfg.vocab_size, n)] for n in lens]
         t0 = time.perf_counter()
-        if path == "llama2-7b-tt-embed":
+        planted = None
+        if path == "chatglm3-6b-compressed":
+            params = None
+            torch.cuda.empty_cache()
+            params, planted = s.compressed_params(cfg, prompts, card)
+        elif path == "llama2-7b-tt-embed":
             cfg = llama_embed
             dense_bytes = params["embed"]["table"].numel() * params["embed"]["table"].element_size()
             gen = torch.Generator(device="cuda")
@@ -1048,15 +1273,14 @@ def main() -> int:
             print(f"[init] {arch} serving config ({cfg.n_layers} layers, int4 g128 + TT, bf16) "
                   f"random params in {time.perf_counter() - t0:.1f} s; "
                   f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
-        lens = s.rng.integers(lo, hi, 8)
-        if cfg.window and lens.max() <= cfg.window + 256:  # one prompt wraps its ring
-            lens[int(lens.argmax())] = s.rng.integers(cfg.window + 257, hi)
-        prompts = [[int(t) for t in s.rng.integers(0, cfg.vocab_size, n)] for n in lens]
         if cfg.family == "rwkv":
             s.layerwise_check(cfg, params, prompts, path)
         else:
             s.logits_check(cfg, params, prompts, max_len,
                            every_position=cfg.vocab_size <= 65536, path=path)
+        if planted is not None:
+            s.planted_vs_loaded(cfg, params, planted, path)
+            planted = None
         torch.cuda.reset_peak_memory_stats()
         counts = s.serve(cfg, params, card, prompts, max_len, path)
         launches.update({k: counts[k] for k in PATH_KERNELS[path] if k not in launches})

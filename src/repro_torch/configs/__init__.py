@@ -2,7 +2,11 @@
 from importlib import import_module
 
 _MODULES = {
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "granite-3-8b": "granite_3_8b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
     "chatglm3-6b": "chatglm3_6b",
     "llama2-7b": "llama2_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",

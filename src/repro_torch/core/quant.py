@@ -41,7 +41,10 @@ def quantize_int4(w: torch.Tensor, group_size: int = 128,
         raise ValueError(f"in_features {in_f} not divisible by group {group_size}")
     g = w.reshape(out_f, in_f // group_size, group_size)
     amax = g.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(amax > 0, amax / QMAX, torch.ones_like(amax))
+    # divide by a tensor, not the Python scalar: CUDA turns division by a
+    # host scalar into a multiply by its reciprocal, which can differ by an
+    # ulp, and the scales must equal the CPU's (and repro's) bitwise
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, QMAX), torch.ones_like(amax))
     q = torch.clamp(torch.round(g / scale), -8, 7).to(torch.int8)
     return {"qweight": pack_int4(q.reshape(out_f, in_f)),
             "scales": scale[..., 0].to(scale_dtype)}

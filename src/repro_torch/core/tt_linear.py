@@ -12,7 +12,19 @@ import math
 
 import torch
 
-from .ttd import TTSpec
+from .ttd import TTSpec, cores_to_matrices, tt_svd
+
+
+def tt_stage_shapes(spec: TTSpec, batch: int) -> list[tuple[int, int, int]]:
+    """(rows, contract, cols) of each stage's matmul for a given token count."""
+    shapes = []
+    m_prod = 1
+    for k in range(spec.d):
+        t_dim = math.prod(spec.in_modes[k + 1:]) * m_prod
+        shapes.append((batch * t_dim, spec.ranks[k] * spec.in_modes[k],
+                       spec.out_modes[k] * spec.ranks[k + 1]))
+        m_prod *= spec.out_modes[k]
+    return shapes
 
 
 def _tt_apply(cores, p: torch.Tensor, spec: TTSpec) -> torch.Tensor:
@@ -58,3 +70,11 @@ def init_tt_linear(spec: TTSpec, *, generator: torch.Generator, device,
                           dtype=torch.float32) * sigma_k).to(dtype)
              for shp in spec.core_matrix_shapes()]
     return {"cores": cores}
+
+
+def tt_linear_from_dense(w: torch.Tensor, spec: TTSpec, dtype=torch.float32,
+                         method: str = "auto"):
+    """TT-SVD a dense (M, N) weight into matrix-layout cores (paper Alg. 1),
+    on the weight's device."""
+    mats = cores_to_matrices(tt_svd(w, spec, method=method), spec)
+    return {"cores": [c.to(dtype) for c in mats]}

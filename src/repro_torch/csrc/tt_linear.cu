@@ -20,8 +20,9 @@
 // and moved 41-229 K elements a token through HBM between stages.
 //
 // Design of the bf16 path: two launches a call, nothing staged in HBM.
-// 1. tt_operators contracts each half's cores into its operator, in f32,
-//    rounded once to bf16, into buffers the wrapper allocates per call
+// 1. tt_operators contracts each half's cores (bf16, or f32 rounded to bf16
+//    as they load) into its operator, in f32, rounded once to bf16, into
+//    buffers the wrapper allocates per call
 //    (nothing derived outlives the call): OPL [r][ML][NL16] and
 //    OPR [r][MR][NR16], rows zero-padded to a multiple of 16.
 // 2. tt_fused: the half the plan contracts first is P, the other Q; right
@@ -44,14 +45,17 @@
 //    bias -> activation -> residual, f32) goes through a shared-memory tile
 //    to 16-byte stores in the output's memory order.
 //
-// f32 (any f32 operand): one launch per stage, a GEMM over all tokens' rows
+// The staged path (f32 x, cores of mixed dtypes, or a bf16 spec past the
+// fused limits): one launch per stage, a GEMM over all tokens' rows
 // (B*T_k rows x r*n_k contraction x m_k*r' columns, the core shared by every
 // token) in 64 x 64 tiles on the CUDA cores, f32 intermediates in a per-call
 // scratch buffer.  The inter-stage reorder of the Pallas kernel
 // (kernels/tt_linear.py:63-67) is folded into each stage's store index and
-// the first stage reads x through the initial (n_1, N/n_1) transpose.  It
-// serves the tied TT unembed only.
+// the first stage reads x through the initial (n_1, N/n_1) transpose.  No
+// shipped serving config takes it but the tied TT unembed.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -201,7 +205,7 @@ constexpr int FNT = 256;     // threads of a full tt_fused CTA (8 warps)
 constexpr int SMEM_MAX = 227 * 1024;
 
 struct OpArgs {
-  const __nv_bfloat16* core[MAXD];
+  const void* core[MAXD];  // bf16 or f32 elements (the kernel's TC)
   int n[MAXD], m[MAXD], r[MAXD + 1];
   bool vec[MAXD];  // core k's rows allow 16-byte loads
   int d, h, NL, NR, ML, MR, NL16, NR16;
@@ -209,36 +213,70 @@ struct OpArgs {
   __nv_bfloat16* opr;  // [r_h][MR][NR16]
 };
 
+// Core elements as the operator pass reads them: bf16 as stored, f32 rounded
+// to bf16 (round to nearest even) as it loads, so an f32 core gives the
+// operators a bf16 copy of it would give (the plain version rounds each core
+// to the bf16 of x).  Vec<TC, N> holds N consecutive elements from one
+// 2N- or 4N-byte load (N = 4: 8 or 16 bytes; N = 8: 16 or 32 bytes).
+__device__ __forceinline__ float core_val(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float core_val(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <typename TC, int N> struct Vec;
+template <int N> struct Vec<__nv_bfloat16, N> {
+  using Raw = typename std::conditional<N == 8, uint4, uint2>::type;
+  Raw u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = *reinterpret_cast<const Raw*>(p);
+  }
+  __device__ __forceinline__ float get(int e) const {
+    const __nv_bfloat162 h2 = reinterpret_cast<const __nv_bfloat162*>(&u)[e / 2];
+    return e % 2 ? __high2float(h2) : __low2float(h2);
+  }
+};
+template <int N> struct Vec<float, N> {
+  float4 u[N / 4];
+  __device__ __forceinline__ void load(const float* p) {
+#pragma unroll
+    for (int c = 0; c < N / 4; ++c) u[c] = reinterpret_cast<const float4*>(p)[c];
+  }
+  __device__ __forceinline__ float get(int e) const {
+    const float4 q = u[e / 4];
+    return core_val(e % 4 == 0 ? q.x : e % 4 == 1 ? q.y : e % 4 == 2 ? q.z : q.w);
+  }
+};
+
+template <typename TC>
+__device__ __forceinline__ const TC* core_ptr(const OpArgs& o, int k) {
+  return static_cast<const TC*>(o.core[k]);
+}
+
 // Rows G_k[a, i, j, 0 .. r_{k+1}) for a = a0 .. a0 + 3 of core k (stored as the
 // (r_k n_k, m_k r_{k+1}) matrix) as f32, zeros past r_{k+1} and past r_k: all
 // loads issued before any is used (16-byte loads where ``vec``).
-template <int RC>
+template <int RC, typename TC>
 __device__ __forceinline__ void core_rows4(const OpArgs& o, int k, int a0, int i, int j, bool vec,
                                            float (&row)[4][RC]) {
   const int rk = o.r[k], rn = o.r[k + 1];
-  const __nv_bfloat16* base = o.core[k] + (long)i * (o.m[k] * rn) + (long)j * rn;
+  const TC* base = core_ptr<TC>(o, k) + (long)i * (o.m[k] * rn) + (long)j * rn;
   const long astep = (long)o.n[k] * o.m[k] * rn;  // from row a to row a + 1
   if (vec) {
-    uint4 u[4][RC / 8];
+    Vec<TC, 8> u[4][RC / 8];
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int b0 = 0; b0 < RC; b0 += 8) {
         const int a = min(a0 + t, rk - 1), bb = min(b0, rn - 8);  // in range; zeroed below
-        u[t][b0 / 8] = *reinterpret_cast<const uint4*>(base + a * astep + bb);
+        u[t][b0 / 8].load(base + a * astep + bb);
       }
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int b0 = 0; b0 < RC; b0 += 8) {
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u[t][b0 / 8]);
         const bool ok = a0 + t < rk && b0 < rn;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f2 = __bfloat1622float2(h2[e]);
-          row[t][b0 + 2 * e] = ok ? f2.x : 0.f;
-          row[t][b0 + 2 * e + 1] = ok ? f2.y : 0.f;
-        }
+        for (int e = 0; e < 8; ++e) row[t][b0 + e] = ok ? u[t][b0 / 8].get(e) : 0.f;
       }
   } else {
 #pragma unroll
@@ -246,7 +284,7 @@ __device__ __forceinline__ void core_rows4(const OpArgs& o, int k, int a0, int i
 #pragma unroll
       for (int b = 0; b < RC; ++b) {
         const int a = min(a0 + t, rk - 1), bb = min(b, rn - 1);
-        const float val = __bfloat162float(base[a * astep + bb]);
+        const float val = core_val(base[a * astep + bb]);
         row[t][b] = (a0 + t < rk && b < rn) ? val : 0.f;
       }
   }
@@ -254,14 +292,14 @@ __device__ __forceinline__ void core_rows4(const OpArgs& o, int k, int a0, int i
 
 // v <- v G_k (LEFT: v'[b] = sum_a v[a] G_k[a, i, j, b]) or v <- G_k v
 // (v'[a] = sum_b G_k[a, i, j, b] v[b]) over all RC >= r_k, r_{k+1} values.
-template <int RC, bool LEFT>
+template <int RC, bool LEFT, typename TC>
 __device__ __forceinline__ void chain_step(const OpArgs& o, int k, int i, int j, float (&v)[RC]) {
   float w[RC], row[4][RC];
 #pragma unroll
   for (int b = 0; b < RC; ++b) w[b] = 0.f;
 #pragma unroll
   for (int a0 = 0; a0 < RC; a0 += 4) {
-    core_rows4(o, k, a0, i, j, o.vec[k], row);  // zeros past r_k
+    core_rows4<RC, TC>(o, k, a0, i, j, o.vec[k], row);  // zeros past r_k
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       if (LEFT) {
@@ -283,7 +321,7 @@ __device__ __forceinline__ void chain_step(const OpArgs& o, int k, int i, int j,
 // those, so its loads are independent of the rest of the chain and the
 // thread takes one round trip to memory.  A longer half gives each thread
 // every rho (a thread per quad would redo the middle cores 4 times).
-template <int RC>
+template <int RC, typename TC>
 __global__ void __launch_bounds__(256) tt_operators(OpArgs o) {
   const int rho = o.r[o.h];
   const int nql = o.h <= 2 ? (rho + 3) / 4 : 1, nqr = o.d - o.h <= 2 ? (rho + 3) / 4 : 1;
@@ -317,34 +355,30 @@ __global__ void __launch_bounds__(256) tt_operators(OpArgs o) {
     if (left) {  // G_0[0, i_0, j_0, :] G_1 ... G_{h-1}[:, ., ., rho]
       const int kf = k1 - 1;
       if (!quad) {
-        core_rows4(o, 0, 0, di[0], dj[0], o.vec[0], row);
+        core_rows4<RC, TC>(o, 0, 0, di[0], dj[0], o.vec[0], row);
 #pragma unroll
         for (int b = 0; b < RC; ++b) v[b] = row[0][b];
-        for (int k = 1; k <= kf; ++k) chain_step<RC, true>(o, k, di[k], dj[k], v);
+        for (int k = 1; k <= kf; ++k) chain_step<RC, true, TC>(o, k, di[k], dj[k], v);
       } else {
         const int rk = o.r[kf], rn = o.r[kf + 1];
-        const __nv_bfloat16* cf =
-            o.core[kf] + (long)di[kf] * (o.m[kf] * rn) + (long)dj[kf] * rn;
+        const TC* cf =
+            core_ptr<TC>(o, kf) + (long)di[kf] * (o.m[kf] * rn) + (long)dj[kf] * rn;
         const long astep = (long)o.n[kf] * o.m[kf] * rn;
         float g[RC][4];  // the last core's rows, this thread's 4 columns
-        if (o.vec[kf]) {   // 8-byte loads: r_{k+1} is a multiple of 8
+        if (o.vec[kf]) {   // 8- or 16-byte loads: r_{k+1} is a multiple of 8
 #pragma unroll
           for (int a = 0; a < RC; ++a) {
-            const uint2 u = *reinterpret_cast<const uint2*>(cf + min(a, rk - 1) * astep + q4);
-            const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+            Vec<TC, 4> u;
+            u.load(cf + min(a, rk - 1) * astep + q4);
 #pragma unroll
-            for (int t = 0; t < 4; ++t) {
-              const float val = t % 2 ? __high2float(h2[t / 2]) : __low2float(h2[t / 2]);
-              g[a][t] = a < rk ? val : 0.f;
-            }
+            for (int t = 0; t < 4; ++t) g[a][t] = a < rk ? u.get(t) : 0.f;
           }
         } else {
 #pragma unroll
           for (int a = 0; a < RC; ++a)
 #pragma unroll
             for (int t = 0; t < 4; ++t) {
-              const float val =
-                  __bfloat162float(cf[min(a, rk - 1) * astep + min(q4 + t, rn - 1)]);
+              const float val = core_val(cf[min(a, rk - 1) * astep + min(q4 + t, rn - 1)]);
               g[a][t] = (a < rk && q4 + t < rn) ? val : 0.f;
             }
         }
@@ -352,10 +386,10 @@ __global__ void __launch_bounds__(256) tt_operators(OpArgs o) {
 #pragma unroll
           for (int t = 0; t < 4; ++t) out[t] = g[0][t];
         } else {
-          core_rows4(o, 0, 0, di[0], dj[0], o.vec[0], row);
+          core_rows4<RC, TC>(o, 0, 0, di[0], dj[0], o.vec[0], row);
 #pragma unroll
           for (int b = 0; b < RC; ++b) v[b] = row[0][b];
-          for (int k = 1; k < kf; ++k) chain_step<RC, true>(o, k, di[k], dj[k], v);
+          for (int k = 1; k < kf; ++k) chain_step<RC, true, TC>(o, k, di[k], dj[k], v);
 #pragma unroll
           for (int a = 0; a < RC; ++a)
 #pragma unroll
@@ -366,25 +400,25 @@ __global__ void __launch_bounds__(256) tt_operators(OpArgs o) {
       out[0] = v[0] = 1.f;
     } else {  // G_h[rho, ., ., :] G_{h+1} ... G_{d-1}[:, ., ., 0]
       const int kl = o.d - 1, rl = o.r[kl];
-      if (quad) core_rows4(o, k0, q4, di[k0], dj[k0], o.vec[k0], row);  // 4 rows of G_h
+      if (quad) core_rows4<RC, TC>(o, k0, q4, di[k0], dj[k0], o.vec[k0], row);  // 4 rows of G_h
       if (quad && k0 == kl) {
 #pragma unroll
         for (int t = 0; t < 4; ++t) out[t] = row[t][0];
       } else {
 #pragma unroll
         for (int a = 0; a < RC; ++a) {
-          const float val = __bfloat162float(
-              o.core[kl][((long)min(a, rl - 1) * o.n[kl] + di[kl]) * o.m[kl] + dj[kl]]);
+          const float val = core_val(
+              core_ptr<TC>(o, kl)[((long)min(a, rl - 1) * o.n[kl] + di[kl]) * o.m[kl] + dj[kl]]);
           v[a] = a < rl ? val : 0.f;
         }
-        for (int k = kl - 1; k > k0; --k) chain_step<RC, false>(o, k, di[k], dj[k], v);
+        for (int k = kl - 1; k > k0; --k) chain_step<RC, false, TC>(o, k, di[k], dj[k], v);
         if (quad) {
 #pragma unroll
           for (int t = 0; t < 4; ++t)
 #pragma unroll
             for (int b = 0; b < RC; ++b) out[t] = fmaf(row[t][b], v[b], out[t]);
         } else if (kl > k0) {
-          chain_step<RC, false>(o, k0, di[k0], dj[k0], v);
+          chain_step<RC, false, TC>(o, k0, di[k0], dj[k0], v);
         }
       }
     }
@@ -843,7 +877,7 @@ int launch_fused_np(const void* x, const __nv_bfloat16* P, const __nv_bfloat16* 
 
 }  // namespace
 
-// The staged f32 path (any f32 operand): d launches, f32 intermediates in
+// The staged path: d launches, f32 intermediates in
 // scratch0/scratch1 (each B * max_intermediate elements).
 extern "C" int rt_tt_linear(const void* x, int x_dtype, const void* const* cores,
                             const int* core_dtypes, void* scratch0, void* scratch1, void* out,
@@ -895,18 +929,19 @@ extern "C" int rt_tt_linear(const void* x, int x_dtype, const void* const* cores
 // The fused bf16 path: the operator pass, then the two-half contraction.
 // ``h`` splits the cores (1 <= h <= d), ``left_first`` picks the half that
 // meets x first (kernels/tt_linear.py contraction_plan); ``ops`` holds
-// r_h * (ML * NL16 + MR * NR16) bf16 elements.
+// r_h * (ML * NL16 + MR * NR16) bf16 elements.  ``cores_f32``: the cores are
+// f32 (what compression writes), each element rounded to bf16 as it loads.
 extern "C" int rt_tt_linear_fused(const void* x, const void* const* cores, void* ops, void* out,
                                   const void* scale, const void* bias, const void* residual,
                                   int B, int d, const int* in_modes, const int* out_modes,
                                   const int* ranks, int h, int left_first, int act,
-                                  void* stream) {
+                                  int cores_f32, void* stream) {
   if (d < 1 || d > MAXD || h < 1 || h > d) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   OpArgs o{};
   int rmax = 1;
   for (int k = 0; k < d; ++k) {
-    o.core[k] = (const __nv_bfloat16*)cores[k];
+    o.core[k] = cores[k];
     o.n[k] = in_modes[k];
     o.m[k] = out_modes[k];
     o.vec[k] = ranks[k + 1] % 8 == 0 && (uintptr_t)cores[k] % 16 == 0;
@@ -932,10 +967,16 @@ extern "C" int rt_tt_linear_fused(const void* x, const void* const* cores, void*
   const long work = (long)o.ML * o.NL16 * (h <= 2 ? nq : 1) +
                     (long)o.MR * o.NR16 * (d - h <= 2 ? nq : 1);
   const unsigned blocks = (unsigned)((work + 255) / 256);
-  if (rmax <= 16)
-    tt_operators<16><<<blocks, 256, 0, st>>>(o);
-  else
-    tt_operators<32><<<blocks, 256, 0, st>>>(o);
+  if (cores_f32) {
+    if (rmax <= 16)
+      tt_operators<16, float><<<blocks, 256, 0, st>>>(o);
+    else
+      tt_operators<32, float><<<blocks, 256, 0, st>>>(o);
+  } else if (rmax <= 16) {
+    tt_operators<16, __nv_bfloat16><<<blocks, 256, 0, st>>>(o);
+  } else {
+    tt_operators<32, __nv_bfloat16><<<blocks, 256, 0, st>>>(o);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 

@@ -31,7 +31,7 @@ L = ctypes.c_long
 # C entry points and their argument types (see each .cu file's extern "C").
 SIGNATURES = {
     "rt_tt_linear": [P, I, P, P, P, P, P, P, P, P, I, I, P, P, P, I, P],
-    "rt_tt_linear_fused": [P] * 7 + [I, I, P, P, P, I, I, I, P],
+    "rt_tt_linear_fused": [P] * 7 + [I, I, P, P, P, I, I, I, I, P],
     "rt_int4_matmul": [P] * 7 + [I] * 5 + [P],
     "rt_int4_unpack": [P, P, I, P],
     "rt_paged_decode_attention": [P] * 10 + [I] * 6 + [F, I, I, I, I, P],

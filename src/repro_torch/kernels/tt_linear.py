@@ -8,9 +8,12 @@ multiplied in f32.  bf16 input and cores with d <= 8 and ranks <= 32 take
 the fused route: the cores split at the mode ``contraction_plan`` picks
 into two halves, each half contracted into one operator (a first launch),
 then one kernel contracts x with both halves on the tensor cores, rounding
-its one intermediate to bf16 on chip (a second launch).  Any f32 operand,
-and a bf16 spec past those limits, takes the staged route: one launch per
-core, f32 intermediates in a per-call scratch buffer (``fused_route``).
+its one intermediate to bf16 on chip (a second launch).  f32 cores with bf16
+input (what ``core.compress`` writes) take the same route: the operator pass
+rounds each core element to bf16 as it loads it, as the plain version rounds
+each core to the dtype of x.  f32 input, cores of mixed dtypes and a bf16
+spec past those limits take the staged route: one launch per core, f32
+intermediates in a per-call scratch buffer (``fused_route``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from . import _build
 from .epilogue import ACT_CODES, apply_epilogue
 
 launches = 0          # kernel launches (2 a fused call, one per core a staged call)
+staged_launches = 0   # the staged route's share of ``launches``
 plain_cuda_calls = 0  # plain-version calls that were handed CUDA tensors
 
 
@@ -114,18 +118,19 @@ FUSED_MAX_D, FUSED_MAX_RANK = 8, 32  # csrc/tt_linear.cu MAXD and the rank limit
 
 
 def fused_route(spec: TTSpec, x_dtype, core_dtypes) -> bool:
-    """Which hand kernel a CUDA call takes, by dtype and shape: bf16 x and
-    cores with d <= 8 and every rank <= 32 take the fused two-half
-    contraction; any f32 operand, or a bf16 spec past those limits, takes
-    the staged kernel (one GEMM launch a core, f32 intermediates, any d and
-    rank).  Both are hand kernels, chosen the way int4_matmul picks its GEMV
-    or its GEMM; neither is the plain version."""
-    return (x_dtype == torch.bfloat16 and all(d == torch.bfloat16 for d in core_dtypes)
+    """Which hand kernel a CUDA call takes, by dtype and shape: bf16 x with
+    cores all bf16 or all f32, d <= 8 and every rank <= 32 takes the fused
+    two-half contraction; f32 x, cores of mixed dtypes, or a spec past those
+    limits takes the staged kernel (one GEMM launch a core, f32
+    intermediates, any d and rank).  Both are hand kernels, chosen the way
+    int4_matmul picks its GEMV or its GEMM; neither is the plain version."""
+    return (x_dtype == torch.bfloat16 and len(set(core_dtypes)) == 1
+            and core_dtypes[0] in (torch.bfloat16, torch.float32)
             and spec.d <= FUSED_MAX_D and max(spec.ranks) <= FUSED_MAX_RANK)
 
 
 def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
-    global launches
+    global launches, staged_launches
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tt_linear kernel takes f32/bf16 input, got {x.dtype}")
     if x.shape[-1] != spec.n_in or not x.is_contiguous():
@@ -158,7 +163,8 @@ def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
         err = _build.lib().rt_tt_linear_fused(
             x.data_ptr(), core_ptrs, ops.data_ptr(), out.data_ptr(), _build.ptr(scale),
             _build.ptr(bias), _build.ptr(residual), b, spec.d, in_m, out_m, ranks, plan.h,
-            int(plan.left_first), ACT_CODES[activation], _build.stream(x))
+            int(plan.left_first), ACT_CODES[activation], int(cores[0].dtype == torch.float32),
+            _build.stream(x))
         _build.check(err, "tt_linear")
         launches += 2  # the operator pass and the fused contraction
         return out
@@ -172,6 +178,7 @@ def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
         in_m, out_m, ranks, ACT_CODES[activation], _build.stream(x))
     _build.check(err, "tt_linear")
     launches += spec.d  # one kernel launch per stage
+    staged_launches += spec.d
     return out
 
 

@@ -132,6 +132,28 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, generator: torch.Generator | Non
     return params
 
 
+def specs_tree(cfg: ModelConfig):
+    """The params' structure with each linear's ``LinearSpec`` at its place
+    and ``None`` for every other leaf (used by ``core.compress``): ``groups``
+    is a list of pattern groups, as in ``init_lm``."""
+    rsp, asp = rec_specs(cfg, True), make_block_specs(cfg, True)
+    rec = {"ln1": None, "ln2": None, "conv_w": None, "conv_b": None, "lambda": None,
+           **{nm: rsp[nm] for nm in ("in_x", "in_g", "gate_a", "gate_x", "out")},
+           "mlp": dict(rsp["mlp"])}
+    attn = {"ln1": None, "ln2": None, "attn": asp.attn_d(), "mlp": asp.mlp_d()}
+    n_groups, tail = pattern_plan(cfg)
+    tree: dict[str, Any] = {"embed": None, "final_norm": None}
+    if n_groups:
+        group = {key: rec if kind == "rec" else attn
+                 for key, kind in zip(layer_keys(cfg), _pat(cfg))}
+        tree["groups"] = [group for _ in range(n_groups)]
+    if tail:
+        tree["tail"] = [rec if kind == "rec" else attn for kind in tail]
+    if not cfg.tie_embeddings:
+        tree["head"] = None
+    return tree
+
+
 # ---------------------------------------------------------------------------
 # Conv1d (causal depthwise) + RG-LRU
 # ---------------------------------------------------------------------------

@@ -99,6 +99,24 @@ def apply_linear(params, x, spec: LinearSpec, compute_dtype=torch.bfloat16, *,
     raise ValueError(spec.kind)
 
 
+def linear_param_count(spec: LinearSpec) -> int:
+    n = spec.n_out if spec.bias else 0
+    if spec.kind == "tt":
+        return n + spec.tt.n_params()
+    return n + spec.n_in * spec.n_out
+
+
+def linear_param_bits(spec: LinearSpec, param_bits: int = 16) -> int:
+    """Storage bits (int4 weights count 4 bits + 16-bit group scales)."""
+    n = spec.n_out * param_bits if spec.bias else 0
+    if spec.kind == "tt":
+        return n + spec.tt.n_params() * param_bits
+    if spec.kind == "int4":
+        groups = spec.n_in // spec.quant_group
+        return n + spec.n_in * spec.n_out * 4 + spec.n_out * groups * 16
+    return n + spec.n_in * spec.n_out * param_bits
+
+
 # ---------------------------------------------------------------------------
 # Norms and rotary positions
 # ---------------------------------------------------------------------------

@@ -116,6 +116,22 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, generator: torch.Generator | Non
     return params
 
 
+def specs_tree(cfg: ModelConfig):
+    """The params' structure with each linear's ``LinearSpec`` at its place
+    and ``None`` for every other leaf (used by ``core.compress``): ``blocks``
+    is a list of layers, as in ``init_lm``."""
+    sp = rwkv_specs(cfg)
+    block = {k: None for k in ("ln1", "ln2", "mu_base", "mu", "mix_w1", "mix_w2",
+                               "decay_w0", "decay_w1", "decay_w2", "bonus_u",
+                               "ln_x", "mu_cm_k", "mu_cm_r")}
+    block["tm"] = dict(sp["tm"])
+    block["cm"] = dict(sp["cm"])
+    tree = {"embed": None, "blocks": [block for _ in range(cfg.n_layers)], "final_norm": None}
+    if not cfg.tie_embeddings:
+        tree["head"] = None
+    return tree
+
+
 def head_weight(params, cfg: ModelConfig):
     """(D, V) unembedding weight (tied or separate)."""
     if cfg.tie_embeddings:

@@ -60,6 +60,13 @@ def make_block_specs(cfg: ModelConfig, ttd_block: bool) -> BlockSpecs:
             f"{cfg.name}: family {cfg.family!r} / norm {cfg.norm_type!r} / act {cfg.act!r} "
             "is not ported yet (dense and griffin's attention blocks, rmsnorm, "
             "swiglu|geglu are)")
+    return block_linear_specs(cfg, ttd_block)
+
+
+def block_linear_specs(cfg: ModelConfig, ttd_block: bool) -> BlockSpecs:
+    """An attention + gated-MLP block's linears, for any config: what
+    ``core.compress.compression_report`` accounts, as the JAX package does
+    for every family but MoE."""
     attn = (
         ("wq", linear_spec(cfg, "attn_q", cfg.d_model, cfg.q_dim, bias=cfg.qkv_bias, ttd_block=ttd_block)),
         ("wk", linear_spec(cfg, "attn_k", cfg.d_model, cfg.kv_dim, bias=cfg.qkv_bias, ttd_block=ttd_block)),
@@ -111,6 +118,21 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, generator: torch.Generator | Non
         w = torch.randn(cfg.d_model, cfg.vocab_size, **kw)
         params["head"] = {"w": (w * std).to(param_dtype)}
     return params
+
+
+def specs_tree(cfg: ModelConfig):
+    """The params' structure with each linear's ``LinearSpec`` at its place
+    and ``None`` for every other leaf (used by ``core.compress``): a segment
+    is a list of its layers, as in ``init_lm``."""
+    segs = []
+    for n, ttd_on in segment_plan(cfg):
+        sp = make_block_specs(cfg, ttd_on)
+        segs.append([{"ln1": None, "ln2": None, "attn": sp.attn_d(), "mlp": sp.mlp_d()}
+                     for _ in range(n)])
+    tree = {"embed": embed_spec(cfg), "segments": segs, "final_norm": None}
+    if not cfg.tie_embeddings:
+        tree["head"] = None
+    return tree
 
 
 # ---------------------------------------------------------------------------

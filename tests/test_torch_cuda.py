@@ -626,3 +626,147 @@ def test_make_session_refuses_on_card(dev, case):
     cfg, backend, limit = refused_config(case)
     with pytest.raises(ValueError, match=re.escape(limit)):
         make_session(cfg, SessionSpec(slots=2, max_len=64), backend=backend, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# The compression pipeline on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("modes", [
+    ((16, 8, 8, 4), (4, 8, 8, 16), 16),     # chatglm3 attn_o
+    ((8, 8, 8, 8), (4, 4, 8, 107), 16),     # chatglm3 gate/up (ragged 107)
+    ((107, 8, 4, 4), (8, 8, 8, 8), 16),     # chatglm3 down
+    ((8, 4, 2), (3, 5, 7), 4),              # ranks not a multiple of 8: scalar loads
+    ((16, 8, 8), (8, 8, 16), 32),
+])
+@pytest.mark.parametrize("b", [1, 8, 130])
+def test_tt_linear_f32_cores_take_the_fused_kernel(dev, modes, b):
+    """f32 cores with bf16 x (what compress_model writes) take the fused
+    route: 2 launches, no staged launch, and the same bits as the same cores
+    rounded to bf16 first (the operator pass rounds each element as it loads
+    it, as the plain version rounds each core); against the plain version at
+    the bf16 tolerance of test_tt_linear_kernel."""
+    from repro_torch.core.ttd import TTSpec
+    from repro_torch.kernels import tt_linear as k
+    spec = TTSpec.make(0, 0, modes[2], d=len(modes[0]), in_modes=modes[0], out_modes=modes[1])
+    g = torch.Generator(device=dev).manual_seed(b)
+    cores = [torch.randn(s, generator=g, device=dev) / math.sqrt(s[0])
+             for s in spec.core_matrix_shapes()]
+    x = torch.randn(b, spec.n_in, generator=g, device=dev).to(torch.bfloat16)
+    res = torch.randn(b, spec.n_out, generator=g, device=dev).to(torch.bfloat16)
+    n0, s0 = k.launches, k.staged_launches
+    got = k.tt_linear(x, cores, spec, residual=res, activation="silu")
+    torch.cuda.synchronize()
+    assert (k.launches, k.staged_launches) == (n0 + 2, s0)
+    same = k.tt_linear(x, [c.to(torch.bfloat16) for c in cores], spec, residual=res,
+                       activation="silu")
+    assert torch.equal(got, same)
+    want = k.tt_linear_ref(x, cores, spec, residual=res, activation="silu")
+    _close(got, want, 2e-2)
+
+
+@pytest.mark.parametrize("shape,group", [((13696, 4096), 128), ((4096, 13696), 128),
+                                         ((300, 256), 32)])
+def test_quantize_int4_on_card_equals_the_cpu(dev, shape, group):
+    """Bitwise, packed nibbles and bf16 scales: the scale is amax / 7 by a
+    true division on both (a division by the Python scalar 7 is a multiply
+    by its reciprocal on CUDA and moved nibbles across a rounding edge)."""
+    from repro_torch.core.quant import quantize_int4
+    g = torch.Generator(device=dev).manual_seed(shape[0])
+    w = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16).float()
+    got, want = quantize_int4(w, group), quantize_int4(w.cpu(), group)
+    for leaf in ("qweight", "scales"):
+        assert torch.equal(got[leaf].cpu(), want[leaf]), leaf
+
+
+def _planted_weight(spec, g, dev):
+    """A weight of TT rank ``spec.ranks`` (bf16 cores), f64, plus 1e-3 noise."""
+    from repro_torch.core import ttd
+    mats = [(torch.randn(s, generator=g, device=dev) / math.sqrt(s[0])).to(torch.bfloat16)
+            for s in spec.core_matrix_shapes()]
+    w = ttd.tt_reconstruct(ttd.matrices_to_cores([m.double() for m in mats], spec), spec)
+    w = w / w.square().mean().sqrt()
+    return w + 1e-3 * torch.randn(w.shape, generator=g, device=dev, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("method", ["svd", "gram", "auto"])
+@pytest.mark.parametrize("modes", [
+    ((8, 4, 4), (9, 4, 5), 6),
+    ((4, 4, 4), (2, 4, 8), 5),
+    ((8, 8, 8, 8), (4, 4, 8, 107), 16),     # chatglm3 gate at full width
+])
+def test_tt_svd_on_card_matches_the_cpu(dev, modes, method):
+    """TT-SVD in f64 on the card (cuSOLVER) against the CPU (LAPACK) on a
+    planted weight, gauge-invariantly: reconstructions within 1e-8."""
+    from repro_torch.core import ttd
+    spec = ttd.TTSpec.make(0, 0, modes[2], d=len(modes[0]), in_modes=modes[0],
+                           out_modes=modes[1])
+    w = _planted_weight(spec, torch.Generator(device=dev).manual_seed(3), dev)
+    got = ttd.tt_reconstruct(ttd.tt_svd(w, spec, method=method), spec)
+    assert got.is_cuda
+    wc = w.cpu()
+    want = ttd.tt_reconstruct(ttd.tt_svd(wc, spec, method=method), spec)
+    assert float(torch.linalg.norm(got.cpu() - want) / torch.linalg.norm(want)) <= 1e-8
+    assert float(torch.linalg.norm(want - wc) / torch.linalg.norm(wc)) <= 2e-3
+
+
+def test_compressed_chatglm3_on_card_launches_no_staged_tt_linear(dev, tmp_path):
+    """ChatGLM3-6B at full width, 2 layers (int4 block 0, TT block 1): dense
+    bf16 params made on the card, compressed there (int4 leaves bitwise the
+    CPU's, TT reconstructions within 1e-6 of the CPU's f32 cores), saved and
+    loaded back onto the card bitwise, then served: the TT linears take the
+    fused kernel on their f32 cores (no staged launch), no plain version
+    runs on CUDA, and every request finishes."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import compress, ttd
+    from repro_torch.kernels import int4_matmul, tt_linear
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.steps import serve_config_of
+    cfg = serve_config_of(get_config("chatglm3-6b")).replace(n_layers=2)
+    cfg = cfg.replace(ttd=dataclasses.replace(cfg.ttd, first_tt_block=1))
+    dcfg = cfg.replace(ttd=dataclasses.replace(cfg.ttd, enabled=False),
+                       quant=dataclasses.replace(cfg.quant, enabled=False))
+    dense = transformer.init_lm(dcfg, seed=0, device=dev)
+    tree = compress.compress_model(dense, dcfg, cfg)
+    cpu = compress.compress_model(_to_cpu(dense), dcfg, cfg)
+    assert tree["segments"][0][0]["mlp"]["gate"]["qweight"].device.type == dev.type
+    for name in ("qweight", "scales"):
+        assert torch.equal(tree["segments"][0][0]["mlp"]["down"][name].cpu(),
+                           cpu["segments"][0][0]["mlp"]["down"][name])
+        assert torch.equal(tree["segments"][1][0]["attn"]["wq"][name].cpu(),
+                           cpu["segments"][1][0]["attn"]["wq"][name])
+    specs = transformer.make_block_specs(cfg, True)
+    for nm, sp in specs.mlp:
+        a, b = (ttd.tt_reconstruct(ttd.matrices_to_cores(
+            [c.double().cpu() for c in t["segments"][1][0]["mlp"][nm]["cores"]], sp.tt), sp.tt)
+            for t in (tree, cpu))
+        assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 1e-6, nm
+    del dense, cpu
+    compress.save_compressed(tmp_path, tree, cfg)
+    params, cfg2 = compress.load_compressed(tmp_path, device=dev)
+    assert cfg2 == cfg
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    from repro_torch.convert import params_to_jax
+    for (na, a), (nb, b) in zip(_flatten_with_paths(params_to_jax(params, cfg)),
+                                _flatten_with_paths(params_to_jax(tree, cfg))):
+        assert na == nb and a.dtype == b.dtype and torch.equal(a, b), na
+    eng = Engine(cfg, params, slots=2, max_len=128, block_size=16, prefill_chunk=32,
+                 cache_dtype="bfloat16", device=dev)
+    counts = (tt_linear.launches, tt_linear.staged_launches, tt_linear.plain_cuda_calls,
+              int4_matmul.launches, int4_matmul.plain_cuda_calls)
+    reqs = [eng.submit(list(range(3, 3 + n)), max_tokens=4) for n in (40, 9)]
+    eng.run()
+    torch.cuda.synchronize()
+    assert all(len(r.out_tokens) == 4 for r in reqs)
+    assert tt_linear.launches > counts[0] and int4_matmul.launches > counts[3]
+    assert (tt_linear.staged_launches, tt_linear.plain_cuda_calls,
+            int4_matmul.plain_cuda_calls) == (counts[1], counts[2], counts[4])
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()

@@ -6,6 +6,12 @@ test (``make_session`` on the card) and its CPU counterpart
 from repro_torch.configs import get_config
 from repro_torch.serve.steps import serve_config_of
 
+# The shipped configs whose full and serving forms every hand kernel takes
+# (``card_limits`` finds nothing).  qwen2-vl-7b is not here: its M-RoPE is
+# refused by the KV backends before any kernel limit is checked.
+FITTING_ARCHS = ("llama2-7b", "chatglm3-6b", "tinyllama-1.1b", "recurrentgemma-2b",
+                 "rwkv6-7b", "granite-3-8b", "phi4-mini-3.8b", "qwen1.5-110b")
+
 REFUSALS = {
     "int4_f32": "int4_matmul takes bf16 activations",
     "int4_group": "int4_matmul takes K % 32 == 0 and group % 16 == 0",

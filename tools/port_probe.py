@@ -12,6 +12,7 @@ from the repository root on a machine with the card:
     python3 tools/port_probe.py splits 128 256 384    # paged decode by entries a split
     python3 tools/port_probe.py wkv-phases            # wkv prefill, one phase switched off
     python3 tools/port_probe.py rglru-variants        # RG-LRU prefill, design variants
+    python3 tools/port_probe.py tt-svd                # ChatGLM3-6B's TT-SVD unfoldings
 
 ``device-times`` runs the decode attention, wkv and RG-LRU phases of
 ``chip_smoke.py`` from TREE (default: this checkout; another checkout, e.g.
@@ -28,8 +29,12 @@ shape, to show where a chunk's time goes.  ``rglru-variants`` likewise
 builds ``csrc/rglru_scan.cu`` as committed, with one design choice undone
 (torch's exact sigmoid and tanh in the gated entry; the pair's arithmetic,
 which leaves wrong output) and with other CTA shapes, and times both entries
-at griffin's prefill shape.  Every line
-carries the card's name and power limit.
+at griffin's prefill shape.  ``tt-svd`` times, in f64 on the card, the
+factorization of every unfolding TT-SVD meets in ChatGLM3-6B's three TT
+specs, by each route that retains the same subspace (``torch.linalg.svd``
+as ``core.ttd`` calls it; on a wide unfolding, the SVD through the QR of its
+transpose; the Gram route; cuSOLVER's drivers), and ``tt_svd`` of each whole
+spec.  Every line carries the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -370,6 +375,65 @@ def rglru_variants() -> None:
           f"{mul:.4f} ms; f32 -> bf16 copy_ ({n * 6e-6:.1f} MB) {cast:.4f} ms", flush=True)
 
 
+def tt_svd_routes() -> None:
+    import time
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import ttd
+    from repro_torch.models.transformer import make_block_specs
+    dev = torch.device("cuda")
+    tag = card()
+
+    def secs(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+    specs = make_block_specs(get_config("chatglm3-6b"), True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for role, sp in (("attn_o", specs.attn_d()["wo"]), ("gate", specs.mlp_d()["gate"]),
+                     ("down", specs.mlp_d()["down"])):
+        spec = sp.tt
+        mats = [torch.randn(shp, generator=g, device=dev, dtype=torch.float64)
+                for shp in spec.core_matrix_shapes()]
+        w = ttd.tt_reconstruct(ttd.matrices_to_cores(mats, spec), spec)
+        c = ttd.tensorize_weight(w, spec).reshape(spec.mode_sizes[0], -1)
+        for k in range(spec.d - 1):
+            rows, cols = c.shape
+            def qr_route(c=c):  # a wide c: the SVD of R^T from the QR of c^T
+                q, tri = torch.linalg.qr(c.T)
+                u, s, vt = torch.linalg.svd(tri.T)
+                return u, s, vt @ q.T
+
+            routes = {"torch.linalg.svd (core.ttd)":
+                      lambda c=c: torch.linalg.svd(c, full_matrices=False),
+                      "gram (eigh of c c^T)": lambda c=c: torch.linalg.eigh(c @ c.T)}
+            if rows < cols:
+                routes["QR of c^T, then SVD of R^T"] = qr_route
+            for drv in ("gesvd", "gesvdj", "gesvda"):
+                routes[f"svd driver={drv}"] = lambda c=c, drv=drv: torch.linalg.svd(
+                    c if rows >= cols else c.T, full_matrices=False, driver=drv)
+            auto = "gram" if cols > 4 * rows and rows > 64 else "svd"
+            for name, fn in routes.items():
+                try:
+                    t = f"{secs(fn) * 1e3:.1f} ms"
+                except RuntimeError as e:  # a driver that refuses the shape
+                    t = f"refused ({str(e).splitlines()[0][:60]})"
+                print(f"[tt-svd] {tag}: {role} unfolding {k} ({rows} x {cols} f64, auto takes "
+                      f"{auto}): {name} {t}", flush=True)
+            u, rest = ttd._truncated_left_factor(c, spec.ranks[k + 1], "auto")
+            c = rest.reshape(u.shape[1] * spec.mode_sizes[k + 1], -1)
+        for method in ("auto", "svd", "gram"):
+            t = secs(lambda: ttd.tt_svd(w, spec, method=method), reps=2)
+            print(f"[tt-svd] {tag}: {role} tt_svd(method={method!r}) whole spec "
+                  f"{t * 1e3:.1f} ms", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -387,6 +451,8 @@ def main() -> int:
         wkv_phases()
     elif what == "rglru-variants":
         rglru_variants()
+    elif what == "tt-svd":
+        tt_svd_routes()
     else:
         print(__doc__, file=sys.stderr)
         return 2
