@@ -13,8 +13,11 @@ then:
    PyTorch library call's time as a yardstick where one exists, and the
    card's bound; each prefill attention phase also prints the key tiles its
    flash tile walks against the tiles its CTAs would walk without the
-   visible-tile rule;
-2. for each of the five serving paths — llama2-7b (paged K/V),
+   visible-tile rule; the MoE phases run the grouped tt_linear at
+   mixtral-8x22b's and kimi-k2-1t-a32b's expert specs (seeded routings, one
+   with every row on one expert, one with most experts empty), the routers'
+   int4 linears on f32 activations, and one full-width kimi-k2 MoE layer;
+2. for each of the six serving paths — llama2-7b (paged K/V),
    recurrentgemma-2b (griffin: RG-LRU state and windowed attention rings),
    llama2-7b-tt-embed (llama2-7b's paged path with its embedding table a
    vocab-axis TT, on the same params with TT cores swapped in for the table),
@@ -23,18 +26,23 @@ then:
    planted TT + int4 tree made dense in bf16 on the card, ``compress_model``
    there with each TT linear's recovery held to a bound, the int4 leaves
    bitwise the CPU's, then ``save_compressed`` and ``load_compressed``
-   bitwise, and the loaded tree served) — at full width and depth:
+   bitwise, and the loaded tree served) and mixtral-8x22b (MoE: 56 layers of
+   8 TT experts, top-2, through the sliding-window ring backend) — at full
+   width and depth:
    a. a logits check at the serve phase's geometry — 8 slots prefilling the
       serve phase's 8 prompts in 256-token chunks, then 4 decode steps,
       through the kernels against the same steps through the plain versions
-      (``dispatch.force_plain()``) on the card;
+      (``dispatch.force_plain()``) on the card (rwkv6-7b and mixtral-8x22b
+      layer by layer on the plain route's input, mixtral's on its first 8
+      layers);
    b. the serve phase — the continuous-batching ``Engine`` serving those 8
       requests (random weights from a seed), with every kernel's launch
       counter reset just before and read just after;
    c. a profile of decode steps and of one prefill chunk: wall time against
       device kernel time (``torch.profiler``), the device's busy share, the
       top kernels, each hand kernel's time, the attention kernels' time, the
-      count of device kernels a call and the scans' device time a launch.
+      count of device kernels and of device-to-host copies a call (none on
+      mixtral-8x22b's) and the scans' device time a launch.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  It exits
@@ -80,6 +88,11 @@ SOURCES = {
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu", "src/repro/kernels/scan_rglru.py:87"),
     "tt_embed": ("src/repro_torch/csrc/tt_embed.cu", "src/repro/kernels/tt_embed.py:79"),
     "wkv_scan": ("src/repro_torch/csrc/wkv_scan.cu", "src/repro/kernels/scan_wkv.py:102"),
+    "tt_linear_grouped": ("src/repro_torch/csrc/tt_linear.cu",
+                          "src/repro/kernels/tt_linear.py:91 (under jax.vmap over the experts, "
+                          "src/repro/models/moe.py:91)"),
+    "int4_matmul_f32": ("src/repro_torch/csrc/int4_matmul.cu",
+                        "src/repro/kernels/int4_matmul.py:57 (f32 activations)"),
 }
 # kernel -> (wrapper module, its launch counter, its plain-on-CUDA counter)
 COUNTERS = {
@@ -91,6 +104,8 @@ COUNTERS = {
     "rglru_scan": ("scan_rglru", "launches", "plain_cuda_calls"),
     "tt_embed": ("tt_embed", "launches", "plain_cuda_calls"),
     "wkv_scan": ("scan_wkv", "launches", "plain_cuda_calls"),
+    "tt_linear_grouped": ("tt_linear", "grouped_launches", "plain_cuda_calls"),
+    "int4_matmul_f32": ("int4_matmul", "f32_launches", "plain_cuda_calls"),
 }
 # the kernels each serving path must launch
 PATH_KERNELS = {
@@ -101,6 +116,8 @@ PATH_KERNELS = {
     "rwkv6-7b": ("tt_linear", "int4_matmul", "wkv_scan"),
     "chatglm3-6b-compressed": ("tt_linear", "int4_matmul", "paged_attention",
                                "prefill_attention"),
+    "mixtral-8x22b": ("tt_linear", "int4_matmul", "ring_attention", "tt_linear_grouped",
+                      "int4_matmul_f32"),
 }
 
 
@@ -164,6 +181,7 @@ class Smoke:
         self.rng = np.random.default_rng(SEED)
         self.failures: list[str] = []
         self.phases: dict[str, list[dict]] = {k: [] for k in SOURCES}
+        self.phases["moe_layer"] = []  # a model layer, not a kernel: kept out of the JSON line
 
     # -- helpers --------------------------------------------------------------
     def randn(self, *shape, dtype=None, scale=1.0):
@@ -667,6 +685,307 @@ class Smoke:
                     "none: torch has no op for a matrix-state linear recurrence",
                     nbytes, flops, F32_FLOPS)
 
+    # -- MoE phases -----------------------------------------------------------
+    def _expert_ids(self, t, e, k, how):
+        """(T, K) expert ids: a seeded router's top-k ("router": random tokens
+        and router weights in f32, softmax, stable top-k), every row on the
+        last expert ("one expert"), or the rows on experts 0 and E/2 only
+        ("most empty")."""
+        torch = self.torch
+        if how == "router":
+            probs = torch.softmax(self.randn(t, 512) @ self.randn(512, e), -1)
+            return torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k]
+        if how == "one expert":
+            return torch.full((t, k), e - 1, dtype=torch.long, device=self.dev)
+        return torch.randint(0, 2, (t, k), generator=self.gen, device=self.dev) * (e // 2)
+
+    def dense_experts(self, cores, spec):
+        """The experts' reconstructed weights (E, M, N) bf16: each expert's TT
+        in f32 on 2048-row slices of the identity."""
+        torch = self.torch
+        from repro_torch.kernels import tt_linear as kt
+        w = torch.empty(cores[0].shape[0], spec.n_out, spec.n_in, dtype=torch.bfloat16,
+                        device=self.dev)
+        for i in range(w.shape[0]):
+            ci = [c[i].float() for c in cores]
+            for r0 in range(0, spec.n_in, 2048):
+                rows = min(2048, spec.n_in - r0)
+                eye = torch.zeros(rows, spec.n_in, device=self.dev)
+                idx = torch.arange(rows, device=self.dev)
+                eye[idx, r0 + idx] = 1.0
+                w[i, :, r0:r0 + rows] = kt.tt_linear_ref(eye, ci, spec).T.to(torch.bfloat16)
+        return w
+
+    def grouped_library(self, x, offsets, w):
+        """One PyTorch call of the same product on the reconstructed experts
+        ``w`` (E, M, N): ``torch._grouped_mm`` where this torch has it, else
+        ``torch.bmm`` over a capacity-padded (E, most rows, N) buffer."""
+        torch = self.torch
+        note = ""
+        gm = getattr(torch, "_grouped_mm", None)
+        if gm is not None:
+            offs = offsets[1:].contiguous()
+            try:
+                gm(x, w.transpose(1, 2), offs=offs)
+                return (self.time_ms(lambda i: gm(x, w.transpose(1, 2), offs=offs)),
+                        "torch._grouped_mm on the reconstructed experts")
+            except (RuntimeError, TypeError, ValueError) as err:
+                note = f"torch._grouped_mm refused it ({str(err).splitlines()[0][:80]}); "
+        counts = (offsets[1:] - offsets[:-1]).long()
+        e, cap = w.shape[0], int(counts.max())
+        if e * cap * x.shape[1] * 2 > 8 * 2 ** 30:
+            return None, note + "none: the capacity-padded buffer would pass 8 GiB"
+        eid = torch.repeat_interleave(torch.arange(e, device=self.dev), counts)
+        pos = torch.arange(x.shape[0], device=self.dev) - offsets[:-1].long()[eid]
+        buf = torch.zeros(e, cap, x.shape[1], dtype=x.dtype, device=self.dev)
+        buf[eid, pos] = x
+        wt = w.transpose(1, 2)
+        return (self.time_ms(lambda i: torch.bmm(buf, wt)),
+                note + f"torch.bmm over a capacity-padded ({e}, {cap}, N) buffer")
+
+    def tt_grouped_phases(self, arch, role, spec, e, k, cases):
+        """The grouped kernel at an arch's expert spec (bf16 cores, E experts,
+        top-k) for each (T tokens, routing) of ``cases``: T·K rows sorted by
+        expert.  The bound counts the rows in and out, the cores of the
+        experts with rows, and the rows times the cheapest order's
+        operations."""
+        torch = self.torch
+        from repro_torch.kernels import tt_linear as kt
+        from repro_torch.models.moe import sort_by_expert
+        cores = [self.randn(e, *s, dtype=torch.bfloat16, scale=1 / math.sqrt(s[0]))
+                 for s in spec.core_matrix_shapes()]
+        w = self.dense_experts(cores, spec)
+        act = "silu" if role == "gate" else None
+        orders = kt.tt_order_flops(spec)
+        order = min(orders, key=orders.get)
+        plan = kt.contraction_plan(spec)
+        per_expert = sum(c[0].numel() * c.element_size() for c in cores)
+        for t, how in cases:
+            _, offsets = sort_by_expert(self._expert_ids(t, e, k, how), e)
+            r = t * k
+            x = self.randn(r, spec.n_in, dtype=torch.bfloat16)
+
+            def run(i, fn=kt.tt_linear_grouped):
+                return fn(x, offsets, cores, spec, activation=act)
+
+            g0 = kt.grouped_launches
+            got = run(0)
+            if kt.grouped_launches != g0 + 2:
+                self.failures.append(f"tt_linear_grouped {arch} {role} T={t}: "
+                                     f"{kt.grouped_launches - g0} launches, not 2")
+            want = run(0, kt.tt_linear_grouped_ref)
+            ms = self.time_ms(run)
+            plain_ms = self.time_ms(lambda i: run(i, kt.tt_linear_grouped_ref), iters=3)
+            lib_ms, lib_what = self.grouped_library(x, offsets, w)
+            counts = (offsets[1:] - offsets[:-1]).tolist()
+            active = sum(c > 0 for c in counts)
+            tb = 1
+            while tb < 8 and 2 * tb * e <= r:
+                tb *= 2
+            tiles, slots = kt.grouped_tiles(offsets.tolist(), tb)
+            label = (f"{arch} {role} E={e} top-{k} T={t} ({r} rows, {how}: {active} experts "
+                     f"with rows, at most {max(counts)})")
+            print(f"[tt_linear_grouped] {label}: at most {tb} rows a CTA tile, {len(tiles)} "
+                  f"tiles of {slots} slots", flush=True)
+            self.record("tt_linear_grouped", label, got, want, 3e-2,
+                        f"bf16: the plain version rounds each of the {spec.d} stages to bf16, "
+                        f"the kernel its operators and its one intermediate (plan h={plan.h} "
+                        f"{'left' if plan.left_first else 'right'} first); bound by the "
+                        f"{order} order, {orders[order] / 1e6:.2f} MFLOP a row",
+                        ms, plain_ms, lib_ms, lib_what,
+                        2 * r * (spec.n_in + spec.n_out) + active * per_expert,
+                        r * orders[order])
+        del w
+        torch.cuda.empty_cache()
+
+    def int4_f32_phase(self, arch, k_in, m, b):
+        """The router's int4 linear on f32 activations (f32 out)."""
+        torch = self.torch
+        from repro_torch.core.quant import dequantize_int4, quantize_int4
+        from repro_torch.kernels import int4_matmul as k
+        q = quantize_int4(self.randn(m, k_in, scale=1 / math.sqrt(k_in)), 128)
+        x = self.randn(b, k_in)
+
+        def run(i, fn=k.int4_matmul):
+            return fn(x, q["qweight"], q["scales"], 128)
+
+        f0 = k.f32_launches
+        got = run(0)
+        if k.f32_launches != f0 + 2 or got.dtype != torch.float32:
+            self.failures.append(f"int4_matmul_f32 {k_in}->{m} B={b}: not the f32 path")
+        want = run(0, k.int4_matmul_ref)
+        ms = self.time_ms(run)
+        plain_ms = self.time_ms(lambda i: run(i, k.int4_matmul_ref), iters=5)
+        wt = dequantize_int4(q, torch.float32).T.contiguous()
+        lib_ms = self.time_ms(lambda i: torch.matmul(x, wt))
+        splits, _ = k.f32_splits(b, k_in, m)
+        nbytes = 4 * b * k_in + m * k_in // 2 + 2 * m * (k_in // 128) + 4 * b * m
+        self.record("int4_matmul_f32", f"{arch} router {k_in}->{m} B={b} f32 x, {splits} K "
+                    "splits", got, want, 1e-4, "f32 products and sums in another order", ms,
+                    plain_ms, lib_ms, "torch.matmul, dequantized f32 W", nbytes,
+                    2.0 * b * k_in * m, F32_FLOPS)
+
+    def route_flips(self, eids, eids_w, probs_w, k):
+        """Tokens the two routes send to different sets of experts (an order
+        swapped on a tie sums the same experts), and the largest distance of
+        a differing expert's plain probability from the plain k-th largest,
+        relative to it (0 when none differ)."""
+        torch = self.torch
+        flip = (eids.sort(-1).values != eids_w.sort(-1).values).any(-1)
+        worst = 0.0
+        for i in torch.nonzero(flip)[:, 0].tolist():
+            kth = probs_w[i].sort(descending=True).values[k - 1]
+            diff = set(eids[i].tolist()) ^ set(eids_w[i].tolist())
+            worst = max(worst, max(abs(float(probs_w[i, j] - kth)) / float(kth) for j in diff))
+        return flip, worst
+
+    def moe_layer_phase(self, t):
+        """One full-width kimi-k2-1t-a32b MoE layer (serving config: the int4
+        router on f32 activations, 384 experts of bf16 TT cores, top-8) on T
+        tokens, through the kernels against the plain versions.  A token may
+        change experts only on a near-tie (its plain probabilities within
+        1e-5 relative: the router's f32 sums differ in order only); tokens
+        routed alike are held at 3e-2 of max|want|."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import dispatch
+        from repro_torch.kernels import tt_linear as kt
+        from repro_torch.models import moe, transformer
+        from repro_torch.serve.steps import serve_config_of
+        cfg = serve_config_of(get_config("kimi-k2-1t-a32b"))
+        specs = transformer.make_block_specs(cfg, True).moe
+        if getattr(self, "kimi_layer", None) is None:
+            self.kimi_layer = moe.init_moe(cfg, specs, torch.bfloat16, generator=self.gen,
+                                           device=self.dev)
+        p = self.kimi_layer
+        x = self.randn(1, t, cfg.d_model, dtype=torch.bfloat16)
+
+        def run(i):
+            return moe.apply_moe(p, x, specs, cfg, torch.bfloat16)[0]
+
+        got = run(0)
+        _, _, eids = moe.route(p, x[0], specs, cfg)
+        with dispatch.force_plain():
+            want = run(0)
+            probs_w, _, eids_w = moe.route(p, x[0], specs, cfg)
+            plain_ms = self.time_ms(run, iters=2)
+        ms = self.time_ms(run, iters=10)
+        flip, gap = self.route_flips(eids, eids_w, probs_w, cfg.experts_per_token)
+        n_flip = int(flip.sum())
+        if n_flip > 0.01 * t or gap > 1e-5:
+            self.failures.append(f"moe_layer T={t}: {n_flip} tokens routed differently, "
+                                 f"worst gap {gap:.2e}")
+        counts = torch.zeros(cfg.n_experts, device=self.dev).index_add_(
+            0, eids_w.reshape(-1), torch.ones(eids_w.numel(), device=self.dev))
+        active = int((counts > 0).sum())
+        sp = specs["expert"]
+        flops_bf16 = t * cfg.experts_per_token * sum(
+            min(kt.tt_order_flops(s.tt).values()) for s in sp.values())
+        flops_f32 = 2.0 * t * cfg.d_model * cfg.n_experts
+        core_bytes = sum(2 * s.tt.n_params() for s in sp.values())
+        nbytes = (2 * 2 * t * cfg.d_model + cfg.d_model * cfg.n_experts // 2
+                  + 2 * cfg.n_experts * cfg.d_model // 128 + active * core_bytes)
+        label = (f"kimi-k2-1t-a32b layer T={t} D={cfg.d_model} E={cfg.n_experts} top-"
+                 f"{cfg.experts_per_token}: {active} experts with rows, {n_flip} tokens routed "
+                 f"differently (worst gap {gap:.1e} of the k-th probability)")
+        self.record("moe_layer", label, got[0][~flip], want[0][~flip], 3e-2,
+                    "bf16 TT experts as the tt_linear phases; router in f32", ms, plain_ms, None,
+                    "none: no one PyTorch call computes an MoE layer", nbytes,
+                    flops_bf16 + flops_f32 * BF16_FLOPS / F32_FLOPS)
+
+    def moe_layerwise_check(self, cfg, params, prompts, max_len, path, n_layers=8,
+                            decode_steps=4, layer_tol=2.0 ** -5):
+        """mixtral-8x22b's check at the serve geometry on its first
+        ``n_layers`` layers, layer by layer: every layer runs both routes on
+        the plain route's input and rings (``transformer.ring_layer``), as the
+        rwkv check does.  The routers of the two routes see inputs that
+        differ by the attention half's bf16 rounding, so a token may take
+        other experts on a near-tie: such tokens are counted (at most 2% of
+        a layer's real rows, each a near-tie: a differing expert's plain
+        probability within 10% of the k-th), and every other real row's
+        layer output must sit within ``layer_tol`` of max|ref|.  The logits
+        of the last layer's two outputs (final norm and head) are held to the
+        other paths' criteria on the rows routed alike."""
+        torch = self.torch
+        from repro_torch.kernels import dispatch
+        from repro_torch.models import moe, transformer
+        from repro_torch.models.modules import apply_norm, dt, embed_lookup, ring_write_index
+        lens, chunks, steps = self._check_inputs(cfg, prompts, decode_steps)
+        cd = dt(cfg.compute_dtype)
+        specs = transformer.make_block_specs(cfg, True)
+        layers = params["segments"][0][:n_layers]
+        caches = transformer.init_ring_cache(cfg.replace(n_layers=n_layers), len(prompts),
+                                             max_len, 256, torch.bfloat16, device=self.dev)[0]
+        routes = []
+        route = moe.route
+
+        def recording(*a, **kw):
+            out = route(*a, **kw)
+            routes.append(out)
+            return out
+
+        worst, flips, rows, gap_worst = (0.0, None), 0, 0, 0.0
+        logits = {"prefill": ([], []), "decode": ([], [])}
+        moe.route = recording
+        try:
+            for kind, calls in (("prefill", chunks),
+                                ("decode", [(t, p[:, None]) for t, p in steps])):
+                for ci, (tok, pos) in enumerate(calls):
+                    pos = pos.to(torch.int32).contiguous()
+                    x = embed_lookup(params["embed"], tok, cd, cfg)
+                    rope_cs = transformer._paged_rope(cfg, pos)
+                    index = ring_write_index(pos, caches[0]["k"].shape[1])
+                    real = (pos >= 0).reshape(-1)
+                    for li, (lp, cache) in enumerate(zip(layers, caches)):
+                        mine = {k: v.clone() for k, v in cache.items()}
+                        routes.clear()
+                        xk = transformer.ring_layer(lp, specs, cfg, x, rope_cs, mine, pos, cd,
+                                                    index)
+                        with dispatch.force_plain():
+                            x = transformer.ring_layer(lp, specs, cfg, x, rope_cs, cache, pos,
+                                                       cd, index)
+                        (_, _, ek), (pw, _, ew) = routes
+                        flip, gap = self.route_flips(ek[real], ew[real], pw[real],
+                                                     cfg.experts_per_token)
+                        keep = real.clone()
+                        keep[real] = ~flip
+                        flips += int(flip.sum())
+                        rows += int(real.sum())
+                        gap_worst = max(gap_worst, gap)
+                        if flip.sum() > 0.02 * real.sum():
+                            self.failures.append(f"{path}: {int(flip.sum())} of "
+                                                 f"{int(real.sum())} rows routed differently "
+                                                 f"at {kind} {ci} layer {li}")
+                        a = xk.reshape(-1, cfg.d_model)[keep].float()
+                        b = x.reshape(-1, cfg.d_model)[keep].float()
+                        r = (a - b).abs().max().item() / b.abs().max().item()
+                        if not r <= worst[0]:
+                            worst = (r, f"{kind} {ci} layer {li}")
+                    for route_rows, y in zip(logits[kind], (xk, x)):
+                        h = apply_norm(params["final_norm"], y).reshape(-1, cfg.d_model)[keep]
+                        route_rows.append(transformer.logits_from_hidden(params, cfg, h))
+        finally:
+            moe.route = route
+        geometry = f"prompts {lens.tolist()} in {len(chunks)} chunks of 256, {len(steps)} " \
+                   f"decode steps x {len(prompts)} slots"
+        good = math.isfinite(worst[0]) and worst[0] <= layer_tol and gap_worst <= 0.1
+        print(f"[layers {path}] the first {n_layers} of {cfg.n_layers} layers (the depth cut "
+              f"for the plain route's time; serve and profile run all {cfg.n_layers}), kernels "
+              f"vs plain on the plain route's input: layer output max|d|/max|ref|="
+              f"{worst[0]:.4f} at {worst[1]} (tol {layer_tol:g}) over rows routed alike; "
+              f"{flips} of {rows} (row, layer) pairs routed differently, worst gap "
+              f"{gap_worst:.3f} of the k-th probability (tol 0.1) {'ok' if good else 'FAIL'}",
+              flush=True)
+        ok = good
+        for kind, (k_rows, p_rows) in logits.items():
+            ok &= self.compare_logits(path, torch.cat(k_rows), torch.cat(p_rows),
+                                      f"{kind}, layer {n_layers - 1} on the plain route's input, "
+                                      f"final norm and head ({geometry})")
+        del logits, caches
+        torch.cuda.empty_cache()
+        if not ok:
+            self.failures.append(f"{path} full-width layer-by-layer check")
+
     # -- logits check ---------------------------------------------------------
     def session(self, cfg, max_len):
         """The serving session of ``cfg`` at the serve geometry (8 slots,
@@ -1126,8 +1445,12 @@ class Smoke:
             print(f"[profile {path}] {what}: attention kernels {attn_s / n * 1e3:.3f} ms "
                   f"per call", flush=True)
             n_kernels = sum(e.count for e in events if not e.key.startswith(("Memcpy", "Memset")))
-            print(f"[profile {path}] {what}: device kernels {n_kernels / n:.1f} per call; SM "
-                  f"clock, power just after: {clock}", flush=True)
+            dtoh = sum(e.count for e in prof.key_averages() if e.key.startswith("Memcpy DtoH"))
+            print(f"[profile {path}] {what}: device kernels {n_kernels / n:.1f} per call; "
+                  f"device-to-host copies {dtoh / n:.1f} per call; SM clock, power just after: "
+                  f"{clock}", flush=True)
+            if path == "mixtral-8x22b" and dtoh:
+                self.failures.append(f"profile {path} {what}: {dtoh} device-to-host copies")
             for name, tag in (("wkv_scan", "wkv_"), ("rglru_scan", "rglru_")):
                 scans = [e for e in hand if tag in e.key]
                 if scans:
@@ -1225,10 +1548,30 @@ def main() -> int:
     for steps in (1, 256):
         for int8 in (False, True):
             s.wkv_phase(steps, int8)
+    # MoE: the experts' grouped TT linears (rows sorted by expert), the routers'
+    # int4 linears on f32 activations, one full-width kimi-k2 MoE layer
+    for arch, cases in (("mixtral-8x22b", {"gate": ((8, "router"), (2048, "router"),
+                                                    (2048, "one expert"), (2048, "most empty")),
+                                           "down": ((8, "router"), (2048, "router"))}),
+                        ("kimi-k2-1t-a32b", {"gate": ((8, "router"), (2048, "router"),
+                                                      (2048, "most empty")),
+                                             "down": ((8, "router"), (2048, "router"))})):
+        mcfg = serve_config_of(get_config(arch))
+        for role, role_cases in cases.items():
+            n_in, n_out = (mcfg.d_model, mcfg.d_ff_expert) if role == "gate" else \
+                (mcfg.d_ff_expert, mcfg.d_model)
+            s.tt_grouped_phases(arch, role, linear_spec(mcfg, f"expert_{role}", n_in, n_out).tt,
+                                mcfg.n_experts, mcfg.experts_per_token, role_cases)
+        for b in (8, 2048):
+            s.int4_f32_phase(arch, mcfg.d_model, mcfg.n_experts, b)
+    for t in (8, 2048):
+        s.moe_layer_phase(t)
+    s.kimi_layer = None
+    torch.cuda.empty_cache()
     print(f"[phases] kernel phases took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     launches = {}
-    models = {"dense": transformer, "griffin": griffin, "rwkv": rwkv}
+    models = {"dense": transformer, "moe": transformer, "griffin": griffin, "rwkv": rwkv}
     params = None
     # (path, arch, max_len, prompt lengths in [lo, hi)); the TT-embed path
     # reuses llama2-7b's params with TT embedding cores in place of the table;
@@ -1240,10 +1583,12 @@ def main() -> int:
                                          3073),
                                         ("rwkv6-7b", "rwkv6-7b", 2048, 64, 1537),
                                         ("chatglm3-6b-compressed", "chatglm3-6b", 2048, 64,
-                                         1537)):
+                                         1537),
+                                        ("mixtral-8x22b", "mixtral-8x22b", 2048, 64, 1025)):
         cfg = serve_config_of(get_config(arch))
         lens = s.rng.integers(lo, hi, 8)
-        if cfg.window and lens.max() <= cfg.window + 256:  # one prompt wraps its ring
+        # one prompt wraps its ring where the prompts may pass the window
+        if cfg.window and cfg.window + 257 < hi and lens.max() <= cfg.window + 256:
             lens[int(lens.argmax())] = s.rng.integers(cfg.window + 257, hi)
         prompts = [[int(t) for t in s.rng.integers(0, cfg.vocab_size, n)] for n in lens]
         t0 = time.perf_counter()
@@ -1275,6 +1620,8 @@ def main() -> int:
                   f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
         if cfg.family == "rwkv":
             s.layerwise_check(cfg, params, prompts, path)
+        elif cfg.family == "moe":
+            s.moe_layerwise_check(cfg, params, prompts, max_len, path)
         else:
             s.logits_check(cfg, params, prompts, max_len,
                            every_position=cfg.vocab_size <= 65536, path=path)

@@ -11,6 +11,8 @@ _MODULES = {
     "llama2-7b": "llama2_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-7b": "rwkv6_7b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 ALL_ARCHS = tuple(_MODULES)

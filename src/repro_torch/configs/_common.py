@@ -3,7 +3,8 @@ from __future__ import annotations
 
 from ..config import ModelConfig, QuantConfig, TTDConfig
 
-# Paper-recipe TTD: attn output + all MLP linears, Q/K/V excluded, d=4, rank=16.
+# Paper-recipe TTD: attn output + all MLP / expert linears, Q/K/V excluded, d=4,
+# rank=16.
 PAPER_TTD = TTDConfig(enabled=True, rank=16, d=4)
 REDUCED_TTD = TTDConfig(enabled=True, rank=4, d=3)
 INT4 = QuantConfig(enabled=True, bits=4, group_size=128)

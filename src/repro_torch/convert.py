@@ -1,7 +1,8 @@
 """Param bridge between the JAX package's tree layout and the port's params.
 
 ``params_from_jax`` takes the tree ``repro.models.transformer.init_lm``
-(dense; the paged and ring backends share it), ``repro.models.griffin.init_lm``
+(dense and MoE; the paged and ring backends share it; an MoE layer's expert
+leaves keep their expert axis), ``repro.models.griffin.init_lm``
 or ``repro.models.rwkv.init_lm`` builds, with every leaf already a numpy
 array (e.g. after ``jax.device_get``) or a CPU tensor (a restored
 checkpoint), and returns the port's params on ``device``: each stacked
@@ -93,9 +94,10 @@ def params_to_jax(params: dict[str, Any], cfg: ModelConfig, *, device="cpu") -> 
     ``device`` (the host by default): each segment, griffin's pattern groups
     and rwkv's blocks stacked along a leading layer axis, every other leaf as
     it is (moved to ``device``)."""
-    stacked = {"dense": "segments", "griffin": "groups", "rwkv": "blocks"}[cfg.family]
+    stacked = {"dense": "segments", "moe": "segments", "griffin": "groups",
+               "rwkv": "blocks"}[cfg.family]
     out = {k: _map(v, lambda t: t.to(device)) for k, v in params.items() if k != stacked}
-    if cfg.family == "dense":
+    if stacked == "segments":
         out["segments"] = [_stack(seg, device) for seg in params["segments"]]
     elif stacked in params:
         out[stacked] = _stack(params[stacked], device)

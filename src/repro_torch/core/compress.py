@@ -105,7 +105,7 @@ def _walk(p_dense, spec_tree, svd_method, path=""):
 
 def _model(cfg: ModelConfig):
     """The module that builds ``cfg``'s params."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from ..models import transformer
         return transformer
     if cfg.family == "griffin":
@@ -115,7 +115,8 @@ def _model(cfg: ModelConfig):
         from ..models import rwkv
         return rwkv
     raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported yet (dense, griffin, rwkv are)")
+        f"{cfg.name}: family {cfg.family!r} is not ported yet (dense, moe, griffin, rwkv "
+        "are)")
 
 
 def _specs_tree(cfg: ModelConfig):
@@ -127,7 +128,7 @@ def compress_model(dense_params, dense_cfg: ModelConfig, target_cfg: ModelConfig
     """Dense params -> the target (TT/int4) parameterization, on the dense
     params' device."""
     tree = _specs_tree(target_cfg)
-    if target_cfg.family == "dense":
+    if target_cfg.family in ("dense", "moe"):
         from ..models.transformer import segment_plan
         # re-split the dense layer stack to the target segment boundaries
         layers = [layer for seg in dense_params["segments"] for layer in seg]
@@ -209,7 +210,9 @@ def compression_report(cfg: ModelConfig, param_bits: int | None = None) -> Compr
     ``param_bits`` is the dense baseline's storage width, derived from
     ``cfg.param_dtype`` unless given.  Compressed kinds count their own
     widths per role (int4 weights 4 bits + 16-bit group scales, TT cores
-    ``param_bits``) via ``linear_param_bits``.
+    ``param_bits``) via ``linear_param_bits``.  An MoE block lists its router
+    and its ``expert_*`` roles, each expert role counted ``n_experts`` times
+    in the block's totals.
     """
     from ..models.transformer import block_linear_specs, segment_plan
 
@@ -225,21 +228,26 @@ def compression_report(cfg: ModelConfig, param_bits: int | None = None) -> Compr
         (esp.tt.n_params() if esp is not None else cfg.vocab_size * cfg.d_model)
         + head)  # an untied head stays dense under TT embed compression
 
-    if cfg.family == "moe":
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
+    def roles(bs):
+        if bs.moe is None:
+            return list(bs.attn + bs.mlp)
+        return list(bs.attn) + [("router", bs.moe["router"])] + [
+            (f"expert_{nm}", sp) for nm, sp in bs.moe["expert"].items()]
+
     comp = block_linear_specs(cfg, ttd_block=True)
     base = block_linear_specs(cfg.replace(ttd=TTDConfig(enabled=False),
                                           quant=QuantConfig(enabled=False)), ttd_block=False)
-    for (nm, sp), (_, sp0) in zip(comp.attn + comp.mlp, base.attn + base.mlp):
+    for (nm, sp), (_, sp0) in zip(roles(comp), roles(base)):
+        mult = cfg.n_experts if nm.startswith("expert_") else 1
         rr = RoleReport(role=nm, kind=sp.kind, n_in=sp.n_in, n_out=sp.n_out,
                         dense_params=linear_param_count(sp0),
                         params=linear_param_count(sp),
                         bits=linear_param_bits(sp, param_bits))
         rep.roles.append(rr)
-        rep.block_dense += rr.dense_params
-        rep.block_comp += rr.params
-        rep.block_bits_dense += linear_param_bits(sp0, param_bits)
-        rep.block_bits_comp += rr.bits
+        rep.block_dense += mult * rr.dense_params
+        rep.block_comp += mult * rr.params
+        rep.block_bits_dense += mult * linear_param_bits(sp0, param_bits)
+        rep.block_bits_comp += mult * rr.bits
     return rep
 
 

@@ -61,6 +61,9 @@
 // did not wait for data, but a 64-deep step had a fixed cost that doubling
 // the step's products barely raised, so steps are 128 deep; an inlined,
 // unrolled epilogue holding every activation was slow, fetched cold.
+//
+// f32 activations (the MoE router, rt_int4_matmul_f32): computed in f32 as
+// the Pallas kernel computes them; see the section at the end.
 #include "common.cuh"
 
 #include <cuda.h>  // CUtensorMap (the encoder is fetched through the runtime)
@@ -640,7 +643,114 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int bytes, const voi
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// ---- f32 activations (the MoE router) --------------------------------------
+// repro's kernel takes f32 x as well and then computes in f32: weights
+// dequantized to f32 (nibble x bf16 scale, exact), f32 products and sums, f32
+// out, the epilogue in f32.  The router (6144 -> 8, 7168 -> 384) is the one
+// caller: at its widths a chunk's f32 activations (B x K x 4 bytes) and, for
+// 384 experts, the 2 B K M operations bound it, and a tile of 64 tokens x 64
+// outputs covers the output with a handful of CTAs.  So K is split across
+// CTAs until the card has ~two CTAs an SM (the wrapper picks the split), each
+// CTA a SIMT tile walking its share of K in 32-deep steps through shared
+// memory (x rows coalesced, each packed byte dequantized once into two
+// weights), its f32 partial sums to a workspace; a second launch sums the
+// splits in order (deterministic) and applies the epilogue.
+constexpr int FT = 64, FM = 64, FK = 32, F_THREADS = 256;
+
+__global__ void __launch_bounds__(F_THREADS)
+int4_f32_partial(const float* __restrict__ x, const uint8_t* __restrict__ qw,
+                 const __nv_bfloat16* __restrict__ scales, float* __restrict__ part, int B,
+                 int K, int M, int group, int steps_per_split) {
+  __shared__ float Xs[FK][FT + 4];
+  __shared__ float Ws[FK][FM + 4];
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int t0 = blockIdx.x * FT, m0 = blockIdx.y * FM, split = blockIdx.z;
+  const int k_begin = split * steps_per_split * FK;
+  const int k_end = min(K, k_begin + steps_per_split * FK);
+  const int groups = K / group;
+  float acc[4][4] = {};
+  for (int k0 = k_begin; k0 < k_end; k0 += FK) {
+#pragma unroll
+    for (int j = 0; j < FT * FK / F_THREADS; ++j) {  // 32 consecutive k of a token row
+      const int idx = tid + j * F_THREADS, r = idx / FK, kk = idx % FK;
+      Xs[kk][r] = t0 + r < B ? x[(long)(t0 + r) * K + k0 + kk] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < FM * FK / 2 / F_THREADS; ++j) {  // one packed byte: k even, k + 1
+      const int idx = tid + j * F_THREADS, r = idx / (FK / 2), c = idx % (FK / 2);
+      const int m = m0 + r, k = k0 + 2 * c;
+      float lo = 0.f, hi = 0.f;
+      if (m < M) {
+        const int b = qw[(long)m * (K / 2) + k / 2];
+        const float sc = __bfloat162float(scales[(long)m * groups + k / group]);
+        lo = (float)(((b & 0xF) ^ 8) - 8) * sc;  // sign-extended nibbles, low = even k
+        hi = (float)(((b >> 4) ^ 8) - 8) * sc;
+      }
+      Ws[2 * c][r] = lo;
+      Ws[2 * c + 1][r] = hi;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Xs[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + tx + 16 * j;
+      if (t < B && m < M) part[((long)split * B + t) * M + m] = acc[i][j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(F_THREADS)
+int4_f32_reduce(const float* __restrict__ part, int splits, const float* __restrict__ ep_scale,
+                const float* __restrict__ ep_bias, const float* __restrict__ residual,
+                float* __restrict__ out, int B, int M, int act) {
+  const long i = (long)blockIdx.x * F_THREADS + threadIdx.x, n = (long)B * M;
+  if (i >= n) return;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += part[s * n + i];  // in split order
+  out[i] = rt_epilogue(v, ep_scale, ep_bias, residual, act, i / M, (int)(i % M), M);
+}
+
 }  // namespace
+
+// f32 x (B, K) -> f32 out (B, M) through ``splits`` partial tiles of
+// ``steps_per_split`` 32-deep K steps each; ``part`` holds splits * B * M f32.
+extern "C" int rt_int4_matmul_f32(const void* x, const void* qweight, const void* scales,
+                                  const void* ep_scale, const void* ep_bias,
+                                  const void* residual, void* part, void* out, int B, int K,
+                                  int M, int group, int splits, int steps_per_split, int act,
+                                  void* stream) {
+  if (B == 0) return 0;
+  if (K % FK || group % 16 || K % group || splits < 1 || (long)splits * steps_per_split * FK < K)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid((B + FT - 1) / FT, (M + FM - 1) / FM, splits);
+  int4_f32_partial<<<grid, F_THREADS, 0, st>>>((const float*)x, (const uint8_t*)qweight,
+                                                (const __nv_bfloat16*)scales, (float*)part, B, K,
+                                                M, group, steps_per_split);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long n = (long)B * M;
+  int4_f32_reduce<<<(unsigned)((n + F_THREADS - 1) / F_THREADS), F_THREADS, 0, st>>>(
+      (const float*)part, splits, (const float*)ep_scale, (const float*)ep_bias,
+      (const float*)residual, (float*)out, B, M, act);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int rt_int4_matmul(const void* x, const void* qweight, const void* scales,
                               const void* ep_scale, const void* ep_bias, const void* residual,

@@ -211,6 +211,13 @@ struct OpArgs {
   int d, h, NL, NR, ML, MR, NL16, NR16;
   __nv_bfloat16* opl;  // [r_h][ML][NL16]
   __nv_bfloat16* opr;  // [r_h][MR][NR16]
+  // grouped (offsets != nullptr): blockIdx.y is the expert, whose cores sit
+  // estride[k] elements past the previous expert's and whose operators
+  // op_stride elements past its; row y = E computes the tile schedule
+  const int* offsets;  // (E + 1) row offsets of the experts in the sorted rows
+  long estride[MAXD], op_stride;
+  int E, R, TB, n_tiles;
+  int4* tiles;  // [n_tiles] (expert, first row, end row, 0); expert -1 past the count
 };
 
 // Core elements as the operator pass reads them: bf16 as stored, f32 rounded
@@ -249,7 +256,42 @@ template <int N> struct Vec<float, N> {
 
 template <typename TC>
 __device__ __forceinline__ const TC* core_ptr(const OpArgs& o, int k) {
-  return static_cast<const TC*>(o.core[k]);
+  return static_cast<const TC*>(o.core[k]) + blockIdx.y * o.estride[k];  // 0 ungrouped
+}
+
+// The grouped contraction's row-tile schedule (kernels/tt_linear.py
+// grouped_tiles is its plain version): expert e's rows [offsets[e],
+// offsets[e + 1]) cut into tiles of TB rows, the experts in order, so that no
+// tile crosses an expert; n_tiles = ceil(R / TB) + E slots bound the count,
+// and the slots past it get expert -1 (their CTAs exit).  One block, a
+// block-wide scan of the experts' tile counts, 256 experts at a time.
+__device__ __forceinline__ void grouped_schedule(const OpArgs& o) {
+  __shared__ int scan[256];
+  __shared__ int carry;  // tiles of the experts before this chunk
+  const int tid = threadIdx.x;
+  if (tid == 0) carry = 0;
+  __syncthreads();
+  for (int e0 = 0; e0 < o.E; e0 += 256) {
+    const int e = e0 + tid;
+    const int lo = e < o.E ? min(max(o.offsets[e], 0), o.R) : 0;
+    const int hi = e < o.E ? min(max(o.offsets[e + 1], lo), o.R) : 0;
+    const int n = (hi - lo + o.TB - 1) / o.TB;
+    scan[tid] = n;
+    __syncthreads();
+    for (int s = 1; s < 256; s *= 2) {  // inclusive scan
+      const int v = tid >= s ? scan[tid - s] : 0;
+      __syncthreads();
+      scan[tid] += v;
+      __syncthreads();
+    }
+    const int first = carry + scan[tid] - n;
+    for (int i = 0; i < n && first + i < o.n_tiles; ++i)
+      o.tiles[first + i] = make_int4(e, lo + i * o.TB, min(lo + (i + 1) * o.TB, hi), 0);
+    __syncthreads();  // every thread has read carry
+    if (tid == 255) carry += scan[255];
+    __syncthreads();
+  }
+  for (int t = carry + tid; t < o.n_tiles; t += 256) o.tiles[t] = make_int4(-1, 0, 0, 0);
 }
 
 // Rows G_k[a, i, j, 0 .. r_{k+1}) for a = a0 .. a0 + 3 of core k (stored as the
@@ -323,6 +365,13 @@ __device__ __forceinline__ void chain_step(const OpArgs& o, int k, int i, int j,
 // every rho (a thread per quad would redo the middle cores 4 times).
 template <int RC, typename TC>
 __global__ void __launch_bounds__(256) tt_operators(OpArgs o) {
+  if (o.offsets) {  // grouped: an expert with no rows needs no operators
+    if (blockIdx.y == o.E) {
+      if (blockIdx.x == 0) grouped_schedule(o);
+      return;
+    }
+    if (o.offsets[blockIdx.y + 1] == o.offsets[blockIdx.y]) return;
+  }
   const int rho = o.r[o.h];
   const int nql = o.h <= 2 ? (rho + 3) / 4 : 1, nqr = o.d - o.h <= 2 ? (rho + 3) / 4 : 1;
   const long nl = (long)o.ML * o.NL16, nr = (long)o.MR * o.NR16;
@@ -337,7 +386,7 @@ __global__ void __launch_bounds__(256) tt_operators(OpArgs o) {
   const int width = left ? o.NL16 : o.NR16, n_in = left ? o.NL : o.NR;
   int jj = (int)(idx / width), ii = (int)(idx % width);
   const int k0 = left ? 0 : o.h, k1 = left ? o.h : o.d;  // the half's cores [k0, k1)
-  __nv_bfloat16* dst = (left ? o.opl : o.opr) + (long)jj * width + ii;
+  __nv_bfloat16* dst = (left ? o.opl : o.opr) + blockIdx.y * o.op_stride + (long)jj * width + ii;
   const long rstride = (long)(left ? o.ML : o.MR) * width;
   float v[RC];
 #pragma unroll
@@ -442,6 +491,12 @@ struct Fused {
   int TB, WPT, KS;     // tokens a CTA, warps a token's rows, warps splitting the ranks
   int xvec;            // x rows allow 16-byte loads
   int rvec;            // the residual allows 16-byte loads
+  int tb_max;          // the most tokens a CTA may take
+  // grouped (tiles != nullptr): CTA x takes tile x of the schedule, rows of
+  // one expert, whose operators sit op_stride elements past the previous
+  // expert's; B is then the row count R
+  const int4* tiles;
+  long op_stride;
 };
 
 __device__ __forceinline__ void cp_commit() {
@@ -511,14 +566,23 @@ tt_fused(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ 
   __nv_bfloat16* Ps = Xs + g.x_elems(f);                            // [NST][KS][tmf][p_stride]
   __nv_bfloat16* Qs = Ps + NST * f.KS * g.p_elems();                // [NST][KS][BNT][q_stride]
 
+  int tok0 = blockIdx.x * f.TB, tok_end = f.B;  // tokens [tok0, min(tok0 + TB, tok_end))
+  if (f.tiles) {
+    const int4 t = f.tiles[blockIdx.x];
+    if (t.x < 0) return;  // a slot past the schedule's count (CTA-uniform)
+    tok0 = t.y;
+    tok_end = t.z;
+    P += t.x * f.op_stride;
+    Q += t.x * f.op_stride;
+  }
   const int tid = threadIdx.x, nth = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int tok0 = blockIdx.x * f.TB, mf0 = blockIdx.y * g.tmf, ms0 = blockIdx.z * BNT;
+  const int mf0 = blockIdx.y * g.tmf, ms0 = blockIdx.z * BNT;
   const int n_rb = f.TB * f.WPT;                 // row blocks of 16 (token, P rows) a CTA
   const int rb = warp % n_rb, kg = warp / n_rb;  // this warp's row block, rank group
   const int wt = rb / f.WPT, wm = (rb % f.WPT) * 16;
   const int tok = tok0 + wt;
-  const bool live = tok < f.B && mf0 + wm < f.Mf;  // warp-uniform
+  const bool live = tok < tok_end && mf0 + wm < f.Mf;  // warp-uniform
   const int n_chunks = (f.Ns16 + SKC - 1) / SKC;
   const int rho_steps = (f.r + f.KS - 1) / f.KS;  // rank steps a chunk (KS ranks a step)
   const int total = n_chunks * rho_steps;
@@ -531,7 +595,7 @@ tt_fused(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ 
     const int s0 = c * SKC;
     for (int t = 0; t < f.TB; ++t) {
       const int tk = tok0 + t;
-      const __nv_bfloat16* xt = x + (long)min(tk, f.B - 1) * f.N;
+      const __nv_bfloat16* xt = x + (long)min(tk, tok_end - 1) * f.N;
       __nv_bfloat16* xs = Xs + t * g.x_rows * g.x_stride;
       // LEFT: rows f (Nf16) of columns s (sk16); else rows s (sk16) of columns f (Nf16)
       const int rows = LEFT ? f.Nf16 : g.sk16, cols = LEFT ? g.sk16 : f.Nf16;
@@ -540,7 +604,7 @@ tt_fused(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ 
         for (int e = tid; e < rows * per_row; e += nth) {
           const int rr = e / per_row, cc = (e % per_row) * 8;
           const int fi = LEFT ? rr : cc, si = s0 + (LEFT ? cc : rr);
-          const bool ok = tk < f.B && fi < f.Nf && si < f.Ns;
+          const bool ok = tk < tok_end && fi < f.Nf && si < f.Ns;
           const long off = LEFT ? (long)fi * f.Ns + si : (long)si * f.Nf + fi;
           cp16(xs + rr * g.x_stride + cc, ok ? xt + off : x, ok);
         }
@@ -548,7 +612,7 @@ tt_fused(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ 
         for (int e = tid; e < rows * cols; e += nth) {
           const int rr = e / cols, cc = e % cols;
           const int fi = LEFT ? rr : cc, si = s0 + (LEFT ? cc : rr);
-          const bool ok = tk < f.B && fi < f.Nf && si < f.Ns;
+          const bool ok = tk < tok_end && fi < f.Nf && si < f.Ns;
           const long off = LEFT ? (long)fi * f.Ns + si : (long)si * f.Nf + fi;
           xs[rr * g.x_stride + cc] = ok ? xt[off] : __float2bfloat16(0.f);
         }
@@ -729,7 +793,7 @@ tt_fused(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ 
         t = gi / ((g.tmf / 8) * BNT);
       }
       const int tk = tok0 + t, mf = mf0 + mfl, ms = ms0 + c;
-      if (tk < f.B && mf < f.Mf && ms < f.Ms)
+      if (tk < tok_end && mf < f.Mf && ms < f.Ms)
         n = LEFT ? min(8, f.Ms - ms) : min(8, f.Mf - mf);
       gm[u] = LEFT ? mf * f.Ms + ms : ms * f.Mf + mf;
       gtk[u] = tk;
@@ -801,6 +865,7 @@ int pick_shape(Fused& f) {
   int best[3] = {0, 0, 0};
   const int wpt_max = (f.Mf + 15) / 16;
   for (int tb = 8; tb >= 1; tb /= 2) {
+    if (tb > f.tb_max) continue;
     for (int wpt = 1; tb * wpt <= 8; wpt *= 2) {
       if (wpt > 1 && wpt / 2 >= wpt_max) break;  // no warp without P rows
       for (int ks = 1; tb * wpt * ks <= 8; ks *= 2) {
@@ -841,10 +906,8 @@ int pick_shape(Fused& f) {
 
 template <int BNT, bool LEFT, int NP>
 int launch_fused(const void* x, const __nv_bfloat16* P, const __nv_bfloat16* Q, void* y,
-                 const float* scale, const float* bias, const void* residual, Fused f,
-                 cudaStream_t st) {
-  const int smem = pick_shape<BNT>(f);
-  if (smem < 0) return (int)cudaErrorInvalidValue;
+                 const float* scale, const float* bias, const void* residual, const Fused& f,
+                 int n_tiles, int smem, cudaStream_t st) {
   auto kern = tt_fused<BNT, LEFT, NP>;
   static unsigned long long raised = 0;  // devices whose limit is raised, a bit each
   int dev = 0;
@@ -856,7 +919,7 @@ int launch_fused(const void* x, const __nv_bfloat16* P, const __nv_bfloat16* Q, 
     if (e != cudaSuccess) return (int)e;
     raised |= bit;
   }
-  dim3 grid((unsigned)((f.B + f.TB - 1) / f.TB), (unsigned)((f.Mf + 16 * f.WPT - 1) / (16 * f.WPT)),
+  dim3 grid((unsigned)n_tiles, (unsigned)((f.Mf + 16 * f.WPT - 1) / (16 * f.WPT)),
             (unsigned)((f.Ms + BNT - 1) / BNT));
   kern<<<grid, 32 * f.TB * f.WPT * f.KS, smem, st>>>(
       (const __nv_bfloat16*)x, P, Q, (__nv_bfloat16*)y, scale, bias,
@@ -867,12 +930,15 @@ int launch_fused(const void* x, const __nv_bfloat16* P, const __nv_bfloat16* Q, 
 template <int BNT, bool LEFT>
 int launch_fused_np(const void* x, const __nv_bfloat16* P, const __nv_bfloat16* Q, void* y,
                     const float* scale, const float* bias, const void* residual, const Fused& f,
-                    cudaStream_t st) {
+                    int n_tiles, int smem, cudaStream_t st) {
   const int np = (f.Ns16 < SKC ? f.Ns16 : SKC) / 16;
-  if (np == 1) return launch_fused<BNT, LEFT, 1>(x, P, Q, y, scale, bias, residual, f, st);
-  if (np == 2) return launch_fused<BNT, LEFT, 2>(x, P, Q, y, scale, bias, residual, f, st);
-  if (np == 3) return launch_fused<BNT, LEFT, 3>(x, P, Q, y, scale, bias, residual, f, st);
-  return launch_fused<BNT, LEFT, 4>(x, P, Q, y, scale, bias, residual, f, st);
+  if (np == 1)
+    return launch_fused<BNT, LEFT, 1>(x, P, Q, y, scale, bias, residual, f, n_tiles, smem, st);
+  if (np == 2)
+    return launch_fused<BNT, LEFT, 2>(x, P, Q, y, scale, bias, residual, f, n_tiles, smem, st);
+  if (np == 3)
+    return launch_fused<BNT, LEFT, 3>(x, P, Q, y, scale, bias, residual, f, n_tiles, smem, st);
+  return launch_fused<BNT, LEFT, 4>(x, P, Q, y, scale, bias, residual, f, n_tiles, smem, st);
 }
 
 }  // namespace
@@ -926,25 +992,29 @@ extern "C" int rt_tt_linear(const void* x, int x_dtype, const void* const* cores
   return 0;
 }
 
-// The fused bf16 path: the operator pass, then the two-half contraction.
-// ``h`` splits the cores (1 <= h <= d), ``left_first`` picks the half that
-// meets x first (kernels/tt_linear.py contraction_plan); ``ops`` holds
-// r_h * (ML * NL16 + MR * NR16) bf16 elements.  ``cores_f32``: the cores are
-// f32 (what compression writes), each element rounded to bf16 as it loads.
-extern "C" int rt_tt_linear_fused(const void* x, const void* const* cores, void* ops, void* out,
-                                  const void* scale, const void* bias, const void* residual,
-                                  int B, int d, const int* in_modes, const int* out_modes,
-                                  const int* ranks, int h, int left_first, int act,
-                                  int cores_f32, void* stream) {
+// The fused bf16 path: the operator pass, then the two-half contraction,
+// for one TT linear (offsets == nullptr) or for E experts' stacked cores over
+// rows sorted by expert (grouped).  ``h`` splits the cores (1 <= h <= d),
+// ``left_first`` picks the half that meets x first (kernels/tt_linear.py
+// contraction_plan); ``ops`` holds r_h * (ML * NL16 + MR * NR16) bf16
+// elements an expert.  ``cores_f32``: the cores are f32 (what compression
+// writes), each element rounded to bf16 as it loads.
+static int tt_fused_call(const void* x, const void* const* cores, const int* offsets, int E,
+                         void* tiles, void* ops, void* out, const void* scale, const void* bias,
+                         const void* residual, int B, int d, const int* in_modes,
+                         const int* out_modes, const int* ranks, int h, int left_first, int act,
+                         int cores_f32, cudaStream_t st) {
   if (d < 1 || d > MAXD || h < 1 || h > d) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   OpArgs o{};
+  const int elt = cores_f32 ? 4 : 2;
   int rmax = 1;
   for (int k = 0; k < d; ++k) {
     o.core[k] = cores[k];
     o.n[k] = in_modes[k];
     o.m[k] = out_modes[k];
-    o.vec[k] = ranks[k + 1] % 8 == 0 && (uintptr_t)cores[k] % 16 == 0;
+    o.estride[k] = offsets ? (long)ranks[k] * in_modes[k] * out_modes[k] * ranks[k + 1] : 0;
+    o.vec[k] = ranks[k + 1] % 8 == 0 && (uintptr_t)cores[k] % 16 == 0 &&
+               (o.estride[k] * elt) % 16 == 0;
   }
   for (int k = 0; k <= d; ++k) {
     o.r[k] = ranks[k];
@@ -963,22 +1033,7 @@ extern "C" int rt_tt_linear_fused(const void* x, const void* const* cores, void*
   const int rho = ranks[h];
   o.opl = (__nv_bfloat16*)ops;
   o.opr = o.opl + (long)rho * o.ML * o.NL16;
-  const long nq = (ranks[h] + 3) / 4;  // threads a (out, in) pair: a quad of rho each
-  const long work = (long)o.ML * o.NL16 * (h <= 2 ? nq : 1) +
-                    (long)o.MR * o.NR16 * (d - h <= 2 ? nq : 1);
-  const unsigned blocks = (unsigned)((work + 255) / 256);
-  if (cores_f32) {
-    if (rmax <= 16)
-      tt_operators<16, float><<<blocks, 256, 0, st>>>(o);
-    else
-      tt_operators<32, float><<<blocks, 256, 0, st>>>(o);
-  } else if (rmax <= 16) {
-    tt_operators<16, __nv_bfloat16><<<blocks, 256, 0, st>>>(o);
-  } else {
-    tt_operators<32, __nv_bfloat16><<<blocks, 256, 0, st>>>(o);
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  o.op_stride = offsets ? (long)rho * (o.ML * o.NL16 + o.MR * o.NR16) : 0;
 
   Fused f{};
   f.B = B;
@@ -995,13 +1050,81 @@ extern "C" int rt_tt_linear_fused(const void* x, const void* const* cores, void*
   f.Ns16 = left_first ? o.NR16 : o.NL16;
   f.xvec = ((uintptr_t)x % 16 == 0) && (left_first ? f.Ns : f.Nf) % 8 == 0;
   f.rvec = (uintptr_t)residual % 16 == 0;
+  f.tb_max = 8;
+  if (offsets) {  // grouped: at most the mean rows an expert (a power of 2), so
+    f.tb_max = 1;  // that sparse routings do not leave most of a CTA idle
+    while (f.tb_max < 8 && 2 * f.tb_max * E <= B) f.tb_max *= 2;
+    f.tiles = (const int4*)tiles;
+    f.op_stride = o.op_stride;
+  }
+  const bool wide = f.Ms > 64 && B >= 128;  // 128 output columns a CTA at prefill widths
+  const int smem = wide ? pick_shape<128>(f) : pick_shape<64>(f);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (B + f.TB - 1) / f.TB + (offsets ? E : 0);  // token tiles or schedule slots
+
+  const long nq = (ranks[h] + 3) / 4;  // threads a (out, in) pair: a quad of rho each
+  const long work = (long)o.ML * o.NL16 * (h <= 2 ? nq : 1) +
+                    (long)o.MR * o.NR16 * (d - h <= 2 ? nq : 1);
+  dim3 op_grid((unsigned)((work + 255) / 256), offsets ? (unsigned)(E + 1) : 1u);
+  if (offsets) {
+    o.offsets = offsets;
+    o.E = E;
+    o.R = B;
+    o.TB = f.TB;
+    o.n_tiles = n_tiles;
+    o.tiles = (int4*)tiles;
+  }
+  if (cores_f32) {
+    if (rmax <= 16)
+      tt_operators<16, float><<<op_grid, 256, 0, st>>>(o);
+    else
+      tt_operators<32, float><<<op_grid, 256, 0, st>>>(o);
+  } else if (rmax <= 16) {
+    tt_operators<16, __nv_bfloat16><<<op_grid, 256, 0, st>>>(o);
+  } else {
+    tt_operators<32, __nv_bfloat16><<<op_grid, 256, 0, st>>>(o);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
   const __nv_bfloat16* P = left_first ? o.opl : o.opr;
   const __nv_bfloat16* Q = left_first ? o.opr : o.opl;
   const float* sc = (const float*)scale;
   const float* bi = (const float*)bias;
-  if (f.Ms > 64 && B >= 128)  // 128 output columns a CTA at prefill widths
-    return left_first ? launch_fused_np<128, true>(x, P, Q, out, sc, bi, residual, f, st)
-                      : launch_fused_np<128, false>(x, P, Q, out, sc, bi, residual, f, st);
-  return left_first ? launch_fused_np<64, true>(x, P, Q, out, sc, bi, residual, f, st)
-                    : launch_fused_np<64, false>(x, P, Q, out, sc, bi, residual, f, st);
+  if (wide)
+    return left_first
+               ? launch_fused_np<128, true>(x, P, Q, out, sc, bi, residual, f, n_tiles, smem, st)
+               : launch_fused_np<128, false>(x, P, Q, out, sc, bi, residual, f, n_tiles, smem, st);
+  return left_first
+             ? launch_fused_np<64, true>(x, P, Q, out, sc, bi, residual, f, n_tiles, smem, st)
+             : launch_fused_np<64, false>(x, P, Q, out, sc, bi, residual, f, n_tiles, smem, st);
+}
+
+extern "C" int rt_tt_linear_fused(const void* x, const void* const* cores, void* ops, void* out,
+                                  const void* scale, const void* bias, const void* residual,
+                                  int B, int d, const int* in_modes, const int* out_modes,
+                                  const int* ranks, int h, int left_first, int act,
+                                  int cores_f32, void* stream) {
+  return tt_fused_call(x, cores, nullptr, 0, nullptr, ops, out, scale, bias, residual, B, d,
+                       in_modes, out_modes, ranks, h, left_first, act, cores_f32,
+                       (cudaStream_t)stream);
+}
+
+// The grouped entry (replaces tt_linear_pallas batched by jax.vmap over the
+// experts, src/repro/models/moe.py:91): x holds R rows sorted by expert,
+// expert e's rows [offsets[e], offsets[e + 1]) (offsets on the device, never
+// read by the host); cores[k] holds the E experts' core k stacked; ``ops``
+// E experts' operators, ``tiles`` R + E int4 slots for the schedule.  Two
+// launches: the operator pass over every expert with rows (plus one block
+// that writes the schedule), then one contraction over the schedule's tiles.
+extern "C" int rt_tt_linear_fused_grouped(const void* x, const void* const* cores,
+                                          const void* offsets, int E, void* tiles, void* ops,
+                                          void* out, int R, int d, const int* in_modes,
+                                          const int* out_modes, const int* ranks, int h,
+                                          int left_first, int act, int cores_f32,
+                                          void* stream) {
+  if (E < 1 || !offsets) return (int)cudaErrorInvalidValue;
+  return tt_fused_call(x, cores, (const int*)offsets, E, tiles, ops, out, nullptr, nullptr,
+                       nullptr, R, d, in_modes, out_modes, ranks, h, left_first, act, cores_f32,
+                       (cudaStream_t)stream);
 }

@@ -35,6 +35,11 @@ _plain: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "repro_torch_force_plain", default=False)
 
 
+def plain_forced() -> bool:
+    """Whether a ``force_plain()`` context is open."""
+    return _plain.get()
+
+
 @contextlib.contextmanager
 def force_plain():
     """Run every op called inside on its plain version."""
@@ -58,8 +63,11 @@ def card_limits(cfg, backend: str) -> list[str]:
     whose bf16 specs past the fused kernel's d <= 8 and ranks <= 32 take the
     staged kernel) are not listed.  int4 scales are bf16 wherever a config's
     params are made (``quantize_int4`` in both packages); the int4 wrapper
-    refuses others at the call."""
-    from ..models import griffin, modules, rwkv, transformer
+    refuses others at the call.  MoE experts run through the grouped
+    tt_linear, which has no staged kernel: int4 or dense experts, and TT
+    experts past the fused route (bf16 activations, d <= 8, ranks <= 32), are
+    refused."""
+    from ..models import griffin, modules, moe, rwkv, transformer
     g = cfg.n_heads // max(cfg.n_kv_heads, 1)
     out = []
     if cfg.family == "rwkv":
@@ -70,8 +78,19 @@ def card_limits(cfg, backend: str) -> list[str]:
     else:
         flags = (True,) if cfg.family == "griffin" else \
             {flag for _, flag in transformer.segment_plan(cfg)}
-        specs = [dict(b.attn) | dict(b.mlp)
-                 for b in (transformer.make_block_specs(cfg, f) for f in flags)]
+        blocks = [transformer.make_block_specs(cfg, f) for f in flags]
+        specs = [dict(b.attn) | (dict(b.mlp) if b.moe is None else {"router": b.moe["router"]})
+                 for b in blocks]
+        for expert in (b.moe["expert"] for b in blocks if b.moe is not None):
+            for sp in expert.values():
+                if sp.kind != "tt":
+                    out.append(moe.NON_TT_EXPERTS)
+                elif not _tt.fused_route(sp.tt, modules.dt(cfg.compute_dtype),
+                                         [modules.dt(cfg.param_dtype)] * sp.tt.d):
+                    out.append(f"grouped tt_linear takes bf16 activations, d <= "
+                               f"{_tt.FUSED_MAX_D} and ranks <= {_tt.FUSED_MAX_RANK}; an "
+                               f"expert linear has d {sp.tt.d}, ranks {sp.tt.ranks}, "
+                               f"compute_dtype {cfg.compute_dtype}")
         if cfg.family == "griffin":
             specs.append(griffin.rec_specs(cfg))
         if backend == "paged":
@@ -90,9 +109,6 @@ def card_limits(cfg, backend: str) -> list[str]:
     for spec in (s for d in specs for s in _linear_specs(d)):
         if spec.kind != "int4":
             continue
-        if cfg.compute_dtype != "bfloat16":
-            out.append(f"int4_matmul takes bf16 activations; compute_dtype is "
-                       f"{cfg.compute_dtype}")
         if spec.n_in % 32 or spec.quant_group % 16:
             out.append(f"int4_matmul takes K % 32 == 0 and group % 16 == 0; an int4 linear "
                        f"has K {spec.n_in}, group {spec.quant_group}")
@@ -129,6 +145,14 @@ def tt_linear(x, cores, spec, *, scale=None, bias=None, residual=None,
     if _plain.get():
         return _tt.tt_linear_ref(x, cores, spec, **kw)
     return _tt.tt_linear(x, cores, spec, **kw)
+
+
+def tt_linear_grouped(x, offsets, cores, spec, *, activation: str | None = None):
+    """(R, N) rows sorted by expert (expert e's rows ``offsets[e] :
+    offsets[e + 1]``) -> (R, M) through the experts' stacked TT cores."""
+    if _plain.get():
+        return _tt.tt_linear_grouped_ref(x, offsets, cores, spec, activation=activation)
+    return _tt.tt_linear_grouped(x, offsets, cores, spec, activation=activation)
 
 
 def int4_matmul(x, qweight, scales, *, group: int = 128, scale=None, bias=None,

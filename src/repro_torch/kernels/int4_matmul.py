@@ -1,9 +1,11 @@
 """w4a16 matmul with the fused epilogue.
 
-``int4_matmul`` runs the CUDA kernels (``csrc/int4_matmul.cu``: a GEMV for
-B <= 16 tokens, a warp-specialized TMA + wgmma GEMM above) on a CUDA tensor
-and the plain version (dequantize to f32, f32 matmul) on a CPU tensor.
-Replaces ``repro/kernels/int4_matmul.py::int4_matmul_pallas``.
+``int4_matmul`` runs the CUDA kernels (``csrc/int4_matmul.cu``: for bf16
+activations a GEMV for B <= 16 tokens, a warp-specialized TMA + wgmma GEMM
+above; for f32 activations, which the MoE router applies, a split-K SIMT
+kernel computing in f32 and its reduce) on a CUDA tensor and the plain
+version (dequantize to f32, f32 matmul) on a CPU tensor.  Replaces
+``repro/kernels/int4_matmul.py::int4_matmul_pallas``, which takes either.
 
 ``unpack_magic`` is the prefill kernel's nibble conversion written in torch
 (no float conversion: the nibble goes into a bf16 mantissa), which the CPU
@@ -20,7 +22,8 @@ from ..core.quant import dequantize_int4
 from . import _build
 from .epilogue import ACT_CODES, apply_epilogue
 
-launches = 0
+launches = 0          # kernel launches (1 a bf16 call, 2 an f32 call)
+f32_launches = 0      # the f32-activation path's share of ``launches``
 plain_cuda_calls = 0
 
 _MAGIC = 0x4300  # bf16 128.0: 0x4300 | u is 128 + u for u in [0, 16)
@@ -49,12 +52,24 @@ def int4_matmul_ref(x, qweight, scales, group: int = 128, *, scale=None,
     return y.to(x.dtype)
 
 
+F32_TILE, F32_STEP = 64, 32  # csrc/int4_matmul.cu FT = FM, FK
+
+
+def f32_splits(b: int, k: int, m: int) -> tuple[int, int]:
+    """(splits, K steps a split) of the f32 path: K cut until the tiles make
+    ~two CTAs an SM (264), at most one 32-deep step a split."""
+    tiles = -(-b // F32_TILE) * -(-m // F32_TILE)
+    steps = k // F32_STEP
+    per = -(-steps // min(steps, max(1, -(-264 // tiles))))
+    return -(-steps // per), per
+
+
 def _int4_matmul_cuda(x, qweight, scales, group, scale, bias, residual, activation):
-    global launches
+    global launches, f32_launches
     m, kh = qweight.shape
     k = kh * 2
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"int4_matmul kernel takes bf16 activations, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int4_matmul kernel takes bf16 or f32 activations, got {x.dtype}")
     if x.shape[-1] != k or not x.is_contiguous():
         raise ValueError(f"x must be contiguous (…, {k}); got {tuple(x.shape)}")
     if qweight.dtype != torch.uint8 or not qweight.is_cuda or not qweight.is_contiguous():
@@ -77,6 +92,17 @@ def _int4_matmul_cuda(x, qweight, scales, group, scale, bias, residual, activati
             raise ValueError("residual must be contiguous, shaped and typed like the output")
     scale = _build.epilogue_vector(scale, m, "scale")
     bias = _build.epilogue_vector(bias, m, "bias")
+    if x.dtype == torch.float32:
+        splits, per = f32_splits(b, k, m)
+        part = torch.empty(splits * b * m, dtype=torch.float32, device=x.device)
+        err = _build.lib().rt_int4_matmul_f32(
+            x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _build.ptr(scale),
+            _build.ptr(bias), _build.ptr(residual), part.data_ptr(), out.data_ptr(), b, k, m,
+            group, splits, per, ACT_CODES[activation], _build.stream(x))
+        _build.check(err, "int4_matmul (f32)")
+        launches += 2  # the partial tiles and their reduce
+        f32_launches += 2
+        return out
     err = _build.lib().rt_int4_matmul(
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _build.ptr(scale),
         _build.ptr(bias), _build.ptr(residual), out.data_ptr(), b, k, m, group,

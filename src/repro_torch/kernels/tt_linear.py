@@ -14,6 +14,14 @@ rounds each core element to bf16 as it loads it, as the plain version rounds
 each core to the dtype of x.  f32 input, cores of mixed dtypes and a bf16
 spec past those limits take the staged route: one launch per core, f32
 intermediates in a per-call scratch buffer (``fused_route``).
+
+``tt_linear_grouped`` is the MoE experts' entry: rows sorted by expert, the
+experts' cores stacked on a leading E axis, one operator launch over every
+expert with rows and one contraction over a row-tile schedule built on the
+device (``grouped_tiles`` is its plain version), no host read.  It replaces
+``tt_linear_pallas`` batched by ``jax.vmap`` over the experts
+(``repro/models/moe.py::_expert_ffn``).  It takes the fused route's specs
+only; there is no grouped staged kernel.
 """
 from __future__ import annotations
 
@@ -29,8 +37,9 @@ from ..core.ttd import TTSpec
 from . import _build
 from .epilogue import ACT_CODES, apply_epilogue
 
-launches = 0          # kernel launches (2 a fused call, one per core a staged call)
+launches = 0          # kernel launches (2 a fused or grouped call, one per core a staged call)
 staged_launches = 0   # the staged route's share of ``launches``
+grouped_launches = 0  # the grouped entry's share of ``launches``
 plain_cuda_calls = 0  # plain-version calls that were handed CUDA tensors
 
 
@@ -189,3 +198,80 @@ def tt_linear(x, cores, spec: TTSpec, *, scale=None, bias=None, residual=None,
     if not x.is_cuda:
         return tt_linear_ref(x, cores, spec, scale, bias, residual, activation)
     return _tt_linear_cuda(x, cores, spec, scale, bias, residual, activation)
+
+
+# ---------------------------------------------------------------------------
+# Grouped entry: E experts' TT linears over rows sorted by expert
+# ---------------------------------------------------------------------------
+def tt_linear_grouped_ref(x, offsets, cores, spec: TTSpec, *, activation=None) -> torch.Tensor:
+    """x (R, N) rows sorted by expert, expert e's rows ``offsets[e] :
+    offsets[e + 1]``; ``cores`` the experts' stacked cores, each (E, r n, m
+    r) -> (R, M) in x.dtype: ``tt_linear_ref`` on each expert's rows.  Reads
+    the offsets on the host (the plain version only)."""
+    global plain_cuda_calls
+    plain_cuda_calls += x.is_cuda
+    off = offsets.tolist()
+    out = x.new_empty(x.shape[0], spec.n_out)
+    for e in range(len(off) - 1):
+        if off[e + 1] > off[e]:
+            out[off[e]:off[e + 1]] = tt_linear_ref(x[off[e]:off[e + 1]], [c[e] for c in cores],
+                                                   spec, activation=activation)
+    return out
+
+
+def grouped_tiles(offsets, tb: int):
+    """The grouped kernel's row-tile schedule, as its operator launch writes
+    it on the device (``csrc/tt_linear.cu`` ``grouped_schedule``): expert
+    e's rows cut into tiles of ``tb``, the experts in order.  Returns the
+    (expert, first row, end row) tiles and the launch's slot count
+    ceil(R / tb) + E, which bounds their number."""
+    off = [int(v) for v in offsets]
+    tiles = [(e, r, min(r + tb, off[e + 1]))
+             for e in range(len(off) - 1) for r in range(off[e], off[e + 1], tb)]
+    return tiles, -(-off[-1] // tb) + len(off) - 1
+
+
+def _tt_linear_grouped_cuda(x, offsets, cores, spec: TTSpec, activation):
+    global launches, grouped_launches
+    e = offsets.shape[0] - 1
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != spec.n_in \
+            or not x.is_contiguous():
+        raise ValueError(f"grouped tt_linear takes contiguous bf16 (R, {spec.n_in}) rows; "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    if offsets.dtype != torch.int32 or offsets.dim() != 1 or e < 1 or not offsets.is_cuda \
+            or not offsets.is_contiguous():
+        raise ValueError("offsets must be a contiguous CUDA int32 (E + 1,) vector")
+    if len(cores) != spec.d or not fused_route(spec, x.dtype, [c.dtype for c in cores]):
+        raise ValueError(f"grouped tt_linear takes d <= {FUSED_MAX_D}, ranks <= "
+                         f"{FUSED_MAX_RANK} and cores all bf16 or all f32 (no grouped staged "
+                         f"kernel); got d {spec.d}, ranks {spec.ranks}")
+    in_m, out_m, ranks, shapes, _, plan, op_elems = _spec_info(spec)
+    for c, shp in zip(cores, shapes):
+        if tuple(c.shape) != (e, *shp) or not c.is_cuda or not c.is_contiguous():
+            raise ValueError(f"stacked core must be a contiguous CUDA {(e, *shp)}; "
+                             f"got {tuple(c.shape)}")
+    r = x.shape[0]
+    if (r + e) * max(spec.n_in, spec.n_out) >= 2 ** 31:
+        raise ValueError(f"{r} rows overflow the kernel's 32-bit offsets")
+    out = torch.empty(r, spec.n_out, dtype=x.dtype, device=x.device)
+    if r == 0:
+        return out
+    ops = torch.empty(e * op_elems, dtype=torch.bfloat16, device=x.device)
+    tiles = torch.empty(r + e, 4, dtype=torch.int32, device=x.device)
+    core_ptrs = (ctypes.c_void_p * spec.d)(*[c.data_ptr() for c in cores])
+    err = _build.lib().rt_tt_linear_fused_grouped(
+        x.data_ptr(), core_ptrs, offsets.data_ptr(), e, tiles.data_ptr(), ops.data_ptr(),
+        out.data_ptr(), r, spec.d, in_m, out_m, ranks, plan.h, int(plan.left_first),
+        ACT_CODES[activation], int(cores[0].dtype == torch.float32), _build.stream(x))
+    _build.check(err, "tt_linear_grouped")
+    launches += 2  # the operator pass (with the schedule) and the contraction
+    grouped_launches += 2
+    return out
+
+
+def tt_linear_grouped(x, offsets, cores, spec: TTSpec, *, activation=None) -> torch.Tensor:
+    """(R, N) rows sorted by expert -> (R, M): the grouped kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if not x.is_cuda:
+        return tt_linear_grouped_ref(x, offsets, cores, spec, activation=activation)
+    return _tt_linear_grouped_cuda(x, offsets, cores, spec, activation)

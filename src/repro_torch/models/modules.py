@@ -255,13 +255,15 @@ def ring_kv_update(cache: dict, k_new, v_new, positions, index=None) -> dict:
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
-def mlp_specs(cfg: ModelConfig, ttd_block: bool) -> dict[str, LinearSpec]:
-    """Gated MLP (swiglu | geglu), the ported configs' ``act``."""
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_specs(cfg: ModelConfig, ttd_block: bool, d_in: int | None = None,
+              d_ff: int | None = None, prefix: str = "mlp") -> dict[str, LinearSpec]:
+    """Gated MLP (swiglu | geglu), the ported configs' ``act``; an MoE
+    expert's is the same with ``prefix="expert"`` and ``d_ff_expert``."""
+    d, f = d_in or cfg.d_model, d_ff or cfg.d_ff
     return {
-        "gate": linear_spec(cfg, "mlp_gate", d, f, ttd_block=ttd_block),
-        "up": linear_spec(cfg, "mlp_up", d, f, ttd_block=ttd_block),
-        "down": linear_spec(cfg, "mlp_down", f, d, ttd_block=ttd_block),
+        "gate": linear_spec(cfg, f"{prefix}_gate", d, f, ttd_block=ttd_block),
+        "up": linear_spec(cfg, f"{prefix}_up", d, f, ttd_block=ttd_block),
+        "down": linear_spec(cfg, f"{prefix}_down", f, d, ttd_block=ttd_block),
     }
 
 

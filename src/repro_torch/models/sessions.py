@@ -1,7 +1,7 @@
 """Typed serving sessions (counterpart of ``repro.models.sessions``).
 
-Ported: the dense family's paged backend (shared block pools plus per-slot
-block tables) and ring backend (per-slot K/V rings), griffin's recurrent
+Ported: the dense and MoE families' paged backend (shared block pools plus
+per-slot block tables) and ring backend (per-slot K/V rings), griffin's recurrent
 backend (RG-LRU state, conv tails and windowed attention rings) and rwkv's
 (wkv matrices and token-shift tails).  Every
 other family or backend raises the reference's ``NotImplementedError``.
@@ -84,7 +84,7 @@ class InferenceSession:
 
 
 class PagedKVSession(InferenceSession):
-    """Shared K/V block pools + block tables (dense, full attention)."""
+    """Shared K/V block pools + block tables (dense and MoE, full attention)."""
     backend = "paged"
     uses_blocks = True
     slot_axis = None
@@ -120,7 +120,7 @@ class PagedKVSession(InferenceSession):
 
 
 class RingKVSession(InferenceSession):
-    """Per-slot K/V rings (dense; the sliding-window backend)."""
+    """Per-slot K/V rings (dense and MoE; the sliding-window backend)."""
     backend = "ring"
 
     def init_state(self):
@@ -196,6 +196,8 @@ def default_backend(cfg: ModelConfig) -> str:
 _SESSION_TYPES: dict[tuple[str, str], type[InferenceSession]] = {
     ("dense", "paged"): PagedKVSession,
     ("dense", "ring"): RingKVSession,
+    ("moe", "paged"): PagedKVSession,
+    ("moe", "ring"): RingKVSession,
     ("griffin", "recurrent"): GriffinSession,
     ("rwkv", "recurrent"): RwkvSession,
 }

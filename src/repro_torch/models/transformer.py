@@ -1,10 +1,13 @@
 """Decoder-only transformer, paged and ring serving paths (counterpart of
-the dense family in ``repro.models.transformer``).
+the dense and MoE families in ``repro.models.transformer``).
 
 Layers are a per-layer list (no scan).  ``params["segments"]`` mirrors the
 JAX tree's segments — blocks ``[0, first_tt_block)`` quant-only, the rest
 TT-compressed (paper: 19 of 32 llama2 blocks) — each a list of layer dicts.
-The paged K/V pools and the per-slot rings are updated in place.
+The paged K/V pools and the per-slot rings are updated in place.  An MoE
+block (``models/moe.py``) takes ``"moe"`` in place of ``"mlp"``: its gated
+combine cannot ride one linear's epilogue, so the skip connection is added
+after it, in x's dtype.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from .._device import resolve_device
 from ..config import ModelConfig
 from ..kernels import dispatch
+from .moe import apply_moe, init_moe, moe_specs
 from .modules import (
     LinearSpec,
     apply_linear,
@@ -44,35 +48,38 @@ from .modules import (
 @dataclass(frozen=True)
 class BlockSpecs:
     attn: tuple[tuple[str, LinearSpec], ...]
-    mlp: tuple[tuple[str, LinearSpec], ...]
+    mlp: tuple[tuple[str, LinearSpec], ...] | None
+    moe: dict[str, Any] | None = None  # moe_specs' dict (MoE blocks, which have no mlp)
 
     def attn_d(self):
         return dict(self.attn)
 
     def mlp_d(self):
-        return dict(self.mlp)
+        return dict(self.mlp) if self.mlp is not None else None
 
 
 def make_block_specs(cfg: ModelConfig, ttd_block: bool) -> BlockSpecs:
-    if cfg.family not in ("dense", "griffin") or cfg.norm_type != "rmsnorm" \
+    if cfg.family not in ("dense", "griffin", "moe") or cfg.norm_type != "rmsnorm" \
             or cfg.act not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / norm {cfg.norm_type!r} / act {cfg.act!r} "
-            "is not ported yet (dense and griffin's attention blocks, rmsnorm, "
+            "is not ported yet (dense, MoE and griffin's attention blocks, rmsnorm, "
             "swiglu|geglu are)")
     return block_linear_specs(cfg, ttd_block)
 
 
 def block_linear_specs(cfg: ModelConfig, ttd_block: bool) -> BlockSpecs:
-    """An attention + gated-MLP block's linears, for any config: what
-    ``core.compress.compression_report`` accounts, as the JAX package does
-    for every family but MoE."""
+    """An attention block's linears with its gated MLP, or for an MoE config
+    its router and experts, for any config: what
+    ``core.compress.compression_report`` accounts."""
     attn = (
         ("wq", linear_spec(cfg, "attn_q", cfg.d_model, cfg.q_dim, bias=cfg.qkv_bias, ttd_block=ttd_block)),
         ("wk", linear_spec(cfg, "attn_k", cfg.d_model, cfg.kv_dim, bias=cfg.qkv_bias, ttd_block=ttd_block)),
         ("wv", linear_spec(cfg, "attn_v", cfg.d_model, cfg.kv_dim, bias=cfg.qkv_bias, ttd_block=ttd_block)),
         ("wo", linear_spec(cfg, "attn_o", cfg.q_dim, cfg.d_model, ttd_block=ttd_block)),
     )
+    if cfg.family == "moe":
+        return BlockSpecs(attn, None, moe_specs(cfg, ttd_block))
     return BlockSpecs(attn, tuple(mlp_specs(cfg, ttd_block).items()))
 
 
@@ -90,12 +97,16 @@ def segment_plan(cfg: ModelConfig) -> list[tuple[int, bool]]:
 
 def init_block(cfg: ModelConfig, specs: BlockSpecs, param_dtype, *, generator, device):
     kw = dict(generator=generator, device=device)
-    return {
+    p = {
         "ln1": init_norm(cfg.d_model, param_dtype, device=device),
         "ln2": init_norm(cfg.d_model, param_dtype, device=device),
         "attn": {nm: init_linear(sp, param_dtype, **kw) for nm, sp in specs.attn},
-        "mlp": init_mlp(specs.mlp_d(), param_dtype, **kw),
     }
+    if specs.moe is not None:
+        p["moe"] = init_moe(cfg, specs.moe, param_dtype, **kw)
+    else:
+        p["mlp"] = init_mlp(specs.mlp_d(), param_dtype, **kw)
+    return p
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, generator: torch.Generator | None = None,
@@ -127,7 +138,9 @@ def specs_tree(cfg: ModelConfig):
     segs = []
     for n, ttd_on in segment_plan(cfg):
         sp = make_block_specs(cfg, ttd_on)
-        segs.append([{"ln1": None, "ln2": None, "attn": sp.attn_d(), "mlp": sp.mlp_d()}
+        ffn = {"moe": {"router": sp.moe["router"], "experts": dict(sp.moe["expert"])}} \
+            if sp.moe is not None else {"mlp": sp.mlp_d()}
+        segs.append([{"ln1": None, "ln2": None, "attn": sp.attn_d(), **ffn}
                      for _ in range(n)])
     tree = {"embed": embed_spec(cfg), "segments": segs, "final_norm": None}
     if not cfg.tie_embeddings:
@@ -199,16 +212,24 @@ def _paged_rope(cfg: ModelConfig, positions):
                        cfg.partial_rotary)
 
 
+def ffn_block(params, specs, cfg, x, compute_dtype):
+    """The block's second half on x (after attention): the gated MLP with the
+    skip connection in its down projection's epilogue, or the MoE layer with
+    the skip added after the combine, in x's dtype."""
+    h = apply_norm(params["ln2"], x)
+    if specs.moe is not None:
+        m, _ = apply_moe(params["moe"], h, specs.moe, cfg, compute_dtype)
+        return x + m.to(x.dtype)
+    return apply_mlp(params["mlp"], h, specs.mlp_d(), cfg, compute_dtype,
+                     residual=x).to(x.dtype)
+
+
 def _paged_body(params, specs, cfg, x, rope_cs, cache, block_tables, positions,
                 kv_index, compute_dtype):
     h = apply_norm(params["ln1"], x)
     a, cache = attn_paged(params, specs, cfg, h, rope_cs, cache, block_tables,
                           positions, kv_index, compute_dtype, residual=x)
-    x = a.to(x.dtype)
-    h = apply_norm(params["ln2"], x)
-    x = apply_mlp(params["mlp"], h, specs.mlp_d(), cfg, compute_dtype,
-                  residual=x).to(x.dtype)
-    return x, cache
+    return ffn_block(params, specs, cfg, a.to(x.dtype), compute_dtype), cache
 
 
 def _paged_stack(params, cfg: ModelConfig, caches, x, rope_cs, block_tables,
@@ -333,19 +354,24 @@ def attn_ring(params, specs, cfg: ModelConfig, x, rope_cs, cache, positions,
     return o, cache
 
 
+def ring_layer(params, specs, cfg: ModelConfig, x, rope_cs, cache, positions, compute_dtype,
+               index):
+    """One block against its rings (updated in place): attention, then the
+    MLP or MoE half."""
+    h = apply_norm(params["ln1"], x)
+    a, _ = attn_ring(params, specs, cfg, h, rope_cs, cache, positions, compute_dtype,
+                     residual=x, index=index)
+    return ffn_block(params, specs, cfg, a.to(x.dtype), compute_dtype)
+
+
 def _ring_stack(params, cfg: ModelConfig, caches, x, rope_cs, positions, compute_dtype):
     index = ring_write_index(positions, caches[0][0]["k"].shape[1])
     for seg_params, seg_cache, (_, ttd_on) in zip(params["segments"], caches,
                                                   segment_plan(cfg)):
         specs = make_block_specs(cfg, ttd_on)
         for layer_params, layer_cache in zip(seg_params, seg_cache):
-            h = apply_norm(layer_params["ln1"], x)
-            a, _ = attn_ring(layer_params, specs, cfg, h, rope_cs, layer_cache, positions,
-                             compute_dtype, residual=x, index=index)
-            x = a.to(x.dtype)
-            h = apply_norm(layer_params["ln2"], x)
-            x = apply_mlp(layer_params["mlp"], h, specs.mlp_d(), cfg, compute_dtype,
-                          residual=x).to(x.dtype)
+            x = ring_layer(layer_params, specs, cfg, x, rope_cs, layer_cache, positions,
+                           compute_dtype, index)
     return apply_norm(params["final_norm"], x), caches
 
 

@@ -5,9 +5,10 @@ the CPU.
 to name one), so the refusal logic that ``make_session`` runs on the card
 runs here: each config past a kernel's limit is refused with the kernel and
 its limit named (``torch_card_cases``), the shipped serve configs pass, and
-a CPU device checks nothing.  ``tt_linear.fused_route`` sends bf16 specs
-past the fused kernel's limits to the staged kernel instead of refusing, and
-f32 cores under bf16 activations to the fused kernel.
+a CPU device checks nothing; MoE experts must be TT (the grouped kernel).
+``tt_linear.fused_route`` sends bf16 specs past the fused kernel's limits to
+the staged kernel instead of refusing, and f32 cores under bf16 activations
+to the fused kernel.
 """
 import pytest
 import torch
@@ -36,6 +37,21 @@ def test_refused_on_a_cuda_device_naming_the_limit(case):
 def test_shipped_configs_fit_the_kernels(arch):
     for cfg in (get_config(arch), serve_config_of(get_config(arch))):
         assert dispatch.card_limits(cfg, default_backend(cfg)) == []
+
+
+def test_f32_activations_fit_the_int4_kernel():
+    """int4_matmul takes f32 activations (the MoE router's; repro's kernel
+    takes them too), so a config computing in f32 crosses no int4 limit."""
+    cfg = serve_config_of(get_config("llama2-7b")).replace(compute_dtype="float32")
+    assert dispatch.card_limits(cfg, "paged") == []
+
+
+def test_kimi_k2_is_refused_for_its_head_dim():
+    """kimi-k2-1t-a32b's experts fit the grouped tt_linear; its head_dim 112
+    is past the attention kernels'."""
+    cfg = serve_config_of(get_config("kimi-k2-1t-a32b"))
+    assert dispatch.card_limits(cfg, default_backend(cfg)) == [
+        "paged_attention (decode) takes head_dim (64, 128, 256); head_dim is 112"]
 
 
 @pytest.mark.parametrize("in_modes,out_modes,rank,dtype,fused", [

@@ -770,3 +770,145 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts: the grouped tt_linear, the f32 router, one MoE layer
+# ---------------------------------------------------------------------------
+GROUPED_ROUTINGS = {
+    "spread": lambda e, r, g: torch.randint(0, e, (r,), generator=g, device=g.device),
+    "one expert": lambda e, r, g: torch.full((r,), e - 1, device=g.device),
+    "most empty": lambda e, r, g: torch.randint(0, 2, (r,), generator=g, device=g.device) * 3,
+}
+
+
+@pytest.mark.parametrize("modes,e", [
+    (((12, 8, 8, 8), (16, 16, 8, 8), 16), 8),    # mixtral expert gate/up
+    (((16, 16, 8, 8), (12, 8, 8, 8), 16), 8),    # mixtral expert down
+    (((14, 8, 8, 8), (8, 8, 8, 4), 16), 384),    # kimi-k2 expert gate/up
+    (((8, 4, 2), (3, 5, 7), 4), 5),              # ranks not a multiple of 8: scalar loads
+])
+@pytest.mark.parametrize("routing", list(GROUPED_ROUTINGS))
+@pytest.mark.parametrize("rows", [1, 16, 300])
+@pytest.mark.parametrize("core_dtype", [torch.bfloat16, torch.float32])
+def test_tt_linear_grouped_kernel(dev, modes, e, routing, rows, core_dtype):
+    """Rows sorted by expert through the grouped kernel (2 launches, counted
+    as grouped) against its plain version, the experts' tt_linear_ref, at the
+    bf16 tolerance of test_tt_linear_kernel; experts without rows, all rows
+    on one expert and f32 cores (rounded to bf16 as they load) included."""
+    from repro_torch.core.ttd import TTSpec
+    from repro_torch.kernels import tt_linear as k
+    spec = TTSpec.make(0, 0, modes[2], d=len(modes[0]), in_modes=modes[0], out_modes=modes[1])
+    g = torch.Generator(device=dev).manual_seed(rows)
+    cores = [(torch.randn(e, *s, generator=g, device=dev) / math.sqrt(s[0])).to(core_dtype)
+             for s in spec.core_matrix_shapes()]
+    eid = torch.sort(GROUPED_ROUTINGS[routing](e, rows, g).long()).values
+    offsets = torch.zeros(e + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(torch.bincount(eid, minlength=e), 0)
+    x = torch.randn(rows, spec.n_in, generator=g, device=dev).to(torch.bfloat16)
+    n0, g0, p0 = k.launches, k.grouped_launches, k.plain_cuda_calls
+    got = k.tt_linear_grouped(x, offsets, cores, spec, activation="silu")
+    torch.cuda.synchronize()
+    assert (k.launches, k.grouped_launches, k.plain_cuda_calls) == (n0 + 2, g0 + 2, p0)
+    want = k.tt_linear_grouped_ref(x, offsets, cores, spec, activation="silu")
+    _close(got, want, 2e-2)
+    again = k.tt_linear_grouped(x, offsets, cores, spec, activation="silu")
+    assert torch.equal(got, again)  # no atomics: the same bits every call
+
+
+def test_tt_linear_grouped_refuses_what_it_cannot_take(dev):
+    from repro_torch.core.ttd import TTSpec
+    from repro_torch.kernels import tt_linear as k
+    spec = TTSpec.make(0, 0, 48, d=3, in_modes=(16, 8, 8), out_modes=(8, 8, 16))
+    cores = [torch.zeros(2, *s, device=dev, dtype=torch.bfloat16)
+             for s in spec.core_matrix_shapes()]
+    offsets = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="no grouped staged"):
+        k.tt_linear_grouped(torch.zeros(2, spec.n_in, device=dev, dtype=torch.bfloat16),
+                            offsets, cores, spec)
+
+
+@pytest.mark.parametrize("b,k_in,m,group", [
+    (8, 6144, 8, 128), (1024, 6144, 8, 128), (2048, 6144, 8, 128),   # mixtral router
+    (8, 7168, 384, 128), (2048, 7168, 384, 128),                      # kimi-k2 router
+    (37, 256, 100, 32), (1, 64, 3, 16)])
+def test_int4_matmul_f32_activations(dev, b, k_in, m, group):
+    """f32 x takes the f32 path (2 launches: split-K tiles and their reduce)
+    and returns f32, against the plain version at 1e-4 of max|want| (f32
+    sums in another order); the epilogue in f32."""
+    from repro_torch.core.quant import quantize_int4
+    from repro_torch.kernels import int4_matmul as k
+    g = torch.Generator(device=dev).manual_seed(b + m)
+    q = quantize_int4(torch.randn(m, k_in, generator=g, device=dev) / math.sqrt(k_in), group)
+    x = torch.randn(b, k_in, generator=g, device=dev)
+    res = torch.randn(b, m, generator=g, device=dev)
+    bias = torch.randn(m, generator=g, device=dev)
+    for kw in ({}, dict(bias=bias, activation="silu"), dict(residual=res, scale=bias)):
+        n0, f0 = k.launches, k.f32_launches
+        got = k.int4_matmul(x, q["qweight"], q["scales"], group, **kw)
+        assert got.dtype == torch.float32
+        assert (k.launches, k.f32_launches) == (n0 + 2, f0 + 2)
+        want = k.int4_matmul_ref(x, q["qweight"], q["scales"], group, **kw)
+        _close(got, want, 1e-4)
+
+
+def _moe_layer(arch, dev, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve.steps import serve_config_of
+    cfg = serve_config_of(get_config(arch))
+    specs = transformer.make_block_specs(cfg, True).moe
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return cfg, specs, moe.init_moe(cfg, specs, torch.bfloat16, generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("t", [8, 600])
+def test_apply_moe_full_width_layer(dev, arch, t):
+    """One MoE layer at full published width (serving config: int4 router on
+    f32 activations, bf16 TT experts) through the kernels against the plain
+    versions on the card.  Routes are compared first: the router's f32 sums
+    differ in order only, so a token may change experts only on a near-tie
+    (its plain probabilities within 1e-5); tokens routed alike are held at
+    3e-2 of max|want| (bf16: the plain version rounds each TT stage, the
+    kernel its operators and its one intermediate)."""
+    from repro_torch.kernels import dispatch, int4_matmul, tt_linear
+    from repro_torch.models import moe
+    cfg, specs, p = _moe_layer(arch, dev)
+    g = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(1, t, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    c0 = (tt_linear.grouped_launches, int4_matmul.f32_launches, tt_linear.plain_cuda_calls,
+          int4_matmul.plain_cuda_calls)
+    y, aux = moe.apply_moe(p, x, specs, cfg, torch.bfloat16)
+    torch.cuda.synchronize()
+    # gate, up and down: 2 launches each; the router: 2
+    assert (tt_linear.grouped_launches, int4_matmul.f32_launches, tt_linear.plain_cuda_calls,
+            int4_matmul.plain_cuda_calls) == (c0[0] + 6, c0[1] + 2, c0[2], c0[3])
+    _, gates, eids = moe.route(p, x[0], specs, cfg)
+    with dispatch.force_plain():
+        yw, auxw = moe.apply_moe(p, x, specs, cfg, torch.bfloat16)
+        probs_w, gates_w, eids_w = moe.route(p, x[0], specs, cfg)
+    same = (eids.sort(-1).values == eids_w.sort(-1).values).all(-1)  # the same experts
+    for i in torch.nonzero(~same)[:, 0].tolist():
+        diff = set(eids[i].tolist()) ^ set(eids_w[i].tolist())
+        kth = probs_w[i].sort(descending=True).values[cfg.experts_per_token - 1]
+        assert all(abs(probs_w[i, j] - kth) <= 1e-5 for j in diff), i
+    assert int(same.sum()) >= 0.99 * t
+    torch.testing.assert_close(gates[same].sort(-1).values, gates_w[same].sort(-1).values,
+                               rtol=1e-5, atol=1e-6)
+    _close(y[0][same], yw[0][same], 3e-2)
+    assert torch.isfinite(y).all() and y.shape == x.shape
+    assert abs(float(aux) - float(auxw)) <= 1e-4 * abs(float(auxw))
+
+
+def test_moe_sessions_on_card(dev):
+    """mixtral-8x22b's serving config is accepted on the card (the ring
+    backend); kimi-k2-1t-a32b's is refused for its head_dim 112."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.sessions import SessionSpec, make_session
+    from repro_torch.serve.steps import serve_config_of
+    spec = SessionSpec(slots=1, max_len=64, cache_dtype="bfloat16")
+    sess = make_session(serve_config_of(get_config("mixtral-8x22b")), spec, device=dev)
+    assert sess.backend == "ring"
+    with pytest.raises(ValueError, match="head_dim is 112"):
+        make_session(serve_config_of(get_config("kimi-k2-1t-a32b")), spec, device=dev)

@@ -137,7 +137,7 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     assert sess.init_state()["block_tables"].device.type == "cpu"
     assert tsessions.make_session(cfg, spec, backend="ring", device="cpu").backend == "ring"
     with pytest.raises(NotImplementedError, match="not ported"):
-        tsessions.make_session(cfg.replace(family="moe"), spec, device="cpu")
+        tsessions.make_session(cfg.replace(family="encdec"), spec, device="cpu")
 
 
 def _imports(path: Path):
