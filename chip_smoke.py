@@ -17,7 +17,10 @@ then:
    mixtral-8x22b's and kimi-k2-1t-a32b's expert specs (seeded routings, one
    with every row on one expert, one with most experts empty), the routers'
    int4 linears on f32 activations, and one full-width kimi-k2 MoE layer;
-2. for each of the six serving paths — llama2-7b (paged K/V),
+   the attention phases at head_dim 112 (kimi-k2's H64/Hkv8) run paged
+   decode and prefill over bf16 and int8 pools and ring decode and prefill
+   over wrapped rings;
+2. for each of the seven serving paths — llama2-7b (paged K/V),
    recurrentgemma-2b (griffin: RG-LRU state and windowed attention rings),
    llama2-7b-tt-embed (llama2-7b's paged path with its embedding table a
    vocab-axis TT, on the same params with TT cores swapped in for the table),
@@ -26,15 +29,17 @@ then:
    planted TT + int4 tree made dense in bf16 on the card, ``compress_model``
    there with each TT linear's recovery held to a bound, the int4 leaves
    bitwise the CPU's, then ``save_compressed`` and ``load_compressed``
-   bitwise, and the loaded tree served) and mixtral-8x22b (MoE: 56 layers of
-   8 TT experts, top-2, through the sliding-window ring backend) — at full
+   bitwise, and the loaded tree served), mixtral-8x22b (MoE: 56 layers of
+   8 TT experts, top-2, through the sliding-window ring backend) and
+   kimi-k2-1t-a32b (MoE: 61 layers of 384 TT experts, top-8, 64 heads of
+   112 over 8 KV heads, vocab 163840, through the paged backend) — at full
    width and depth:
    a. a logits check at the serve phase's geometry — 8 slots prefilling the
       serve phase's 8 prompts in 256-token chunks, then 4 decode steps,
       through the kernels against the same steps through the plain versions
-      (``dispatch.force_plain()``) on the card (rwkv6-7b and mixtral-8x22b
-      layer by layer on the plain route's input, mixtral's on its first 8
-      layers);
+      (``dispatch.force_plain()``) on the card (rwkv6-7b and the MoE paths
+      layer by layer on the plain route's input, the MoE paths' on their
+      first 8 layers: mixtral's over rings, kimi-k2's over a paged pool);
    b. the serve phase — the continuous-batching ``Engine`` serving those 8
       requests (random weights from a seed), with every kernel's launch
       counter reset just before and read just after;
@@ -42,7 +47,7 @@ then:
       device kernel time (``torch.profiler``), the device's busy share, the
       top kernels, each hand kernel's time, the attention kernels' time, the
       count of device kernels and of device-to-host copies a call (none on
-      mixtral-8x22b's) and the scans' device time a launch.
+      the MoE paths') and the scans' device time a launch.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  It exits
@@ -118,6 +123,8 @@ PATH_KERNELS = {
                                "prefill_attention"),
     "mixtral-8x22b": ("tt_linear", "int4_matmul", "ring_attention", "tt_linear_grouped",
                       "int4_matmul_f32"),
+    "kimi-k2-1t-a32b": ("tt_linear", "tt_linear_grouped", "int4_matmul", "int4_matmul_f32",
+                        "paged_attention", "prefill_attention"),
 }
 
 
@@ -184,6 +191,19 @@ class Smoke:
         self.phases["moe_layer"] = []  # a model layer, not a kernel: kept out of the JSON line
 
     # -- helpers --------------------------------------------------------------
+    @contextlib.contextmanager
+    def own_generators(self, seed):
+        """Phases inside draw from torch and numpy generators seeded with
+        ``seed``; the shared ones are left where they were."""
+        gen, rng = self.gen, self.rng
+        self.gen = self.torch.Generator(device=self.dev)
+        self.gen.manual_seed(seed)
+        self.rng = self.np.random.default_rng(seed)
+        try:
+            yield
+        finally:
+            self.gen, self.rng = gen, rng
+
     def randn(self, *shape, dtype=None, scale=1.0):
         t = self.torch.randn(*shape, generator=self.gen, device=self.dev) * scale
         return t.to(dtype) if dtype is not None else t
@@ -895,27 +915,76 @@ class Smoke:
 
     def moe_layerwise_check(self, cfg, params, prompts, max_len, path, n_layers=8,
                             decode_steps=4, layer_tol=2.0 ** -5):
-        """mixtral-8x22b's check at the serve geometry on its first
+        """An MoE path's check at the serve geometry on its first
         ``n_layers`` layers, layer by layer: every layer runs both routes on
-        the plain route's input and rings (``transformer.ring_layer``), as the
-        rwkv check does.  The routers of the two routes see inputs that
-        differ by the attention half's bf16 rounding, so a token may take
-        other experts on a near-tie: such tokens are counted (at most 2% of
-        a layer's real rows, each a near-tie: a differing expert's plain
-        probability within 10% of the k-th), and every other real row's
-        layer output must sit within ``layer_tol`` of max|ref|.  The logits
-        of the last layer's two outputs (final norm and head) are held to the
-        other paths' criteria on the rows routed alike."""
+        the plain route's input and K/V, as the rwkv check does, through the
+        session's backend: rings (``transformer.ring_layer``, mixtral-8x22b)
+        or a paged pool under the serve phase's block tables
+        (``transformer._paged_body``, kimi-k2-1t-a32b).  Three comparisons
+        a layer, each within ``layer_tol`` of max|ref|:
+
+        * the kernel layer's output.  Its router sees an input that differs
+          from the plain router's by the attention half's bf16 rounding, so
+          a token may take other experts on a near-tie: such tokens are
+          counted, each must be a near-tie (a differing expert's plain
+          probability within 10% of the k-th), and every other real row is
+          held to the tolerance;
+        * the kernel attention half (norm, attention, output projection and
+          skip) on every real row;
+        * the kernel MoE half on the plain attention half's output: the two
+          routers see the same input, so at most 2% of a layer's real rows
+          may take other experts, each a near-tie, and every other row is
+          held to the tolerance.  (With the inputs apart by rounding, 384
+          experts top-8 leave gaps small enough that kimi-k2 moved 4.3% of
+          its rows, and one row of a decode step's 8 is 12.5%.)
+
+        The logits of the last layer's two outputs (final norm and head) are
+        held to the other paths' criteria on the rows the kernel layer
+        routed alike: every kept row, held whole (kimi-k2's 163840-entry
+        vocabulary: ~2.9 GB of f32 logits a route at ~4.4 K prompt rows,
+        room enough on the card)."""
         torch = self.torch
         from repro_torch.kernels import dispatch
         from repro_torch.models import moe, transformer
-        from repro_torch.models.modules import apply_norm, dt, embed_lookup, ring_write_index
+        from repro_torch.models.modules import (apply_norm, dt, embed_lookup, paged_write_index,
+                                                ring_write_index)
+        from repro_torch.models.sessions import default_backend
         lens, chunks, steps = self._check_inputs(cfg, prompts, decode_steps)
         cd = dt(cfg.compute_dtype)
         specs = transformer.make_block_specs(cfg, True)
         layers = params["segments"][0][:n_layers]
-        caches = transformer.init_ring_cache(cfg.replace(n_layers=n_layers), len(prompts),
-                                             max_len, 256, torch.bfloat16, device=self.dev)[0]
+        backend = default_backend(cfg)
+        if backend == "paged":  # the serve geometry's tables: slot i owns blocks i*W+1 ..
+            width = max_len // 16
+            bt = torch.arange(1, 1 + len(prompts) * width, dtype=torch.int32,
+                              device=self.dev).reshape(len(prompts), width)
+            caches = transformer.init_paged_cache(cfg.replace(n_layers=n_layers),
+                                                  1 + len(prompts) * width, 16, torch.bfloat16,
+                                                  device=self.dev)[0]
+        else:
+            caches = transformer.init_ring_cache(cfg.replace(n_layers=n_layers), len(prompts),
+                                                 max_len, 256, torch.bfloat16,
+                                                 device=self.dev)[0]
+
+        def attn_half(lp, x, rope_cs, cache, pos, index):
+            """The block's first half (norm, attention, output projection with
+            the skip), as ``_paged_body`` and ``ring_layer`` run it."""
+            h = apply_norm(lp["ln1"], x)
+            if backend == "paged":
+                a, _ = transformer.attn_paged(lp, specs, cfg, h, rope_cs, cache, bt, pos, index,
+                                              cd, residual=x)
+            else:
+                a, _ = transformer.attn_ring(lp, specs, cfg, h, rope_cs, cache, pos, cd,
+                                             residual=x, index=index)
+            return a.to(x.dtype)
+
+        def moe_half(lp, a):
+            return transformer.ffn_block(lp, specs, cfg, a, cd)
+
+        def rel(a, b):
+            a, b = a.float(), b.float()
+            return (a - b).abs().max().item() / b.abs().max().item()
+
         routes = []
         route = moe.route
 
@@ -924,7 +993,12 @@ class Smoke:
             routes.append(out)
             return out
 
-        worst, flips, rows, gap_worst = (0.0, None), 0, 0, 0.0
+        # worst relative error and where: the whole kernel layer (over rows it
+        # routes as the plain layer does), its attention half, and its MoE half
+        # on the plain attention half's output (over rows routed alike)
+        worst = {w: (0.0, None) for w in ("layer", "attention", "moe")}
+        flips = {"layer": 0, "moe": 0}
+        rows, gap_worst = 0, 0.0
         logits = {"prefill": ([], []), "decode": ([], [])}
         moe.route = recording
         try:
@@ -934,48 +1008,63 @@ class Smoke:
                     pos = pos.to(torch.int32).contiguous()
                     x = embed_lookup(params["embed"], tok, cd, cfg)
                     rope_cs = transformer._paged_rope(cfg, pos)
-                    index = ring_write_index(pos, caches[0]["k"].shape[1])
+                    index = paged_write_index(bt, pos, 16) if backend == "paged" else \
+                        ring_write_index(pos, caches[0]["k"].shape[1])
                     real = (pos >= 0).reshape(-1)
                     for li, (lp, cache) in enumerate(zip(layers, caches)):
+                        where = f"{kind} {ci} layer {li}"
                         mine = {k: v.clone() for k, v in cache.items()}
                         routes.clear()
-                        xk = transformer.ring_layer(lp, specs, cfg, x, rope_cs, mine, pos, cd,
-                                                    index)
+                        ak = attn_half(lp, x, rope_cs, mine, pos, index)
                         with dispatch.force_plain():
-                            x = transformer.ring_layer(lp, specs, cfg, x, rope_cs, cache, pos,
-                                                       cd, index)
-                        (_, _, ek), (pw, _, ew) = routes
-                        flip, gap = self.route_flips(ek[real], ew[real], pw[real],
-                                                     cfg.experts_per_token)
-                        keep = real.clone()
-                        keep[real] = ~flip
-                        flips += int(flip.sum())
+                            a = attn_half(lp, x, rope_cs, cache, pos, index)
+                        xk = moe_half(lp, ak)   # the kernel layer
+                        yk = moe_half(lp, a)    # its MoE half on the plain route's input
+                        with dispatch.force_plain():
+                            x = moe_half(lp, a)
+                        (_, _, e_layer), (_, _, e_half), (pw, _, ew) = routes
                         rows += int(real.sum())
-                        gap_worst = max(gap_worst, gap)
-                        if flip.sum() > 0.02 * real.sum():
-                            self.failures.append(f"{path}: {int(flip.sum())} of "
-                                                 f"{int(real.sum())} rows routed differently "
-                                                 f"at {kind} {ci} layer {li}")
-                        a = xk.reshape(-1, cfg.d_model)[keep].float()
-                        b = x.reshape(-1, cfg.d_model)[keep].float()
-                        r = (a - b).abs().max().item() / b.abs().max().item()
-                        if not r <= worst[0]:
-                            worst = (r, f"{kind} {ci} layer {li}")
+                        keep = {}
+                        for what, ek in (("layer", e_layer), ("moe", e_half)):
+                            flip, gap = self.route_flips(ek[real], ew[real], pw[real],
+                                                         cfg.experts_per_token)
+                            keep[what] = real.clone()
+                            keep[what][real] = ~flip
+                            flips[what] += int(flip.sum())
+                            gap_worst = max(gap_worst, gap)
+                        n_half = int((real & ~keep["moe"]).sum())
+                        if n_half > 0.02 * real.sum():
+                            self.failures.append(f"{path}: {n_half} of {int(real.sum())} rows "
+                                                 f"routed differently by the MoE half at {where}")
+                        for what, got, want, sel in (
+                                ("layer", xk, x, keep["layer"]), ("attention", ak, a, real),
+                                ("moe", yk, x, keep["moe"])):
+                            r = rel(got.reshape(-1, cfg.d_model)[sel],
+                                    want.reshape(-1, cfg.d_model)[sel])
+                            if not r <= worst[what][0]:
+                                worst[what] = (r, where)
                     for route_rows, y in zip(logits[kind], (xk, x)):
-                        h = apply_norm(params["final_norm"], y).reshape(-1, cfg.d_model)[keep]
+                        h = apply_norm(params["final_norm"], y)
+                        h = h.reshape(-1, cfg.d_model)[keep["layer"]]
                         route_rows.append(transformer.logits_from_hidden(params, cfg, h))
         finally:
             moe.route = route
         geometry = f"prompts {lens.tolist()} in {len(chunks)} chunks of 256, {len(steps)} " \
                    f"decode steps x {len(prompts)} slots"
-        good = math.isfinite(worst[0]) and worst[0] <= layer_tol and gap_worst <= 0.1
+        good = all(math.isfinite(r) and r <= layer_tol for r, _ in worst.values()) \
+            and gap_worst <= 0.1
         print(f"[layers {path}] the first {n_layers} of {cfg.n_layers} layers (the depth cut "
-              f"for the plain route's time; serve and profile run all {cfg.n_layers}), kernels "
+              f"for the plain route's time; serve and profile run all {cfg.n_layers}), "
+              f"{'over the paged pool, ' if backend == 'paged' else ''}kernels "
               f"vs plain on the plain route's input: layer output max|d|/max|ref|="
-              f"{worst[0]:.4f} at {worst[1]} (tol {layer_tol:g}) over rows routed alike; "
-              f"{flips} of {rows} (row, layer) pairs routed differently, worst gap "
-              f"{gap_worst:.3f} of the k-th probability (tol 0.1) {'ok' if good else 'FAIL'}",
-              flush=True)
+              f"{worst['layer'][0]:.4f} at {worst['layer'][1]} (tol {layer_tol:g}) over rows "
+              f"routed alike; {flips['layer']} of {rows} (row, layer) pairs routed differently "
+              f"(the routers' inputs differ by the attention half's rounding); each half on "
+              f"the plain route's input: attention half {worst['attention'][0]:.4f} at "
+              f"{worst['attention'][1]}, MoE half {worst['moe'][0]:.4f} at {worst['moe'][1]} "
+              f"over rows routed alike (tol {layer_tol:g}), {flips['moe']} pairs routed "
+              f"differently (tol 2% a layer); worst gap {gap_worst:.3f} of the k-th "
+              f"probability (tol 0.1) {'ok' if good else 'FAIL'}", flush=True)
         ok = good
         for kind, (k_rows, p_rows) in logits.items():
             ok &= self.compare_logits(path, torch.cat(k_rows), torch.cat(p_rows),
@@ -1421,8 +1510,10 @@ class Smoke:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             clock = sm_clock()
+            # "Command Buffer Full" is the driver's record of the host waiting on a
+            # full launch queue, not device work: it once read 56 ms of a chunk
             events = [e for e in prof.key_averages() if e.device_time_total > 0
-                      and not e.key.startswith(("aten::", "cuda"))]
+                      and not e.key.startswith(("aten::", "cuda", "Command Buffer Full"))]
             device_s = sum(e.self_device_time_total for e in events) / 1e6
             top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
             # the hand kernels live in anonymous namespaces of csrc/ (attention tiles
@@ -1449,7 +1540,7 @@ class Smoke:
             print(f"[profile {path}] {what}: device kernels {n_kernels / n:.1f} per call; "
                   f"device-to-host copies {dtoh / n:.1f} per call; SM clock, power just after: "
                   f"{clock}", flush=True)
-            if path == "mixtral-8x22b" and dtoh:
+            if cfg.family == "moe" and dtoh:
                 self.failures.append(f"profile {path} {what}: {dtoh} device-to-host copies")
             for name, tag in (("wkv_scan", "wkv_"), ("rglru_scan", "rglru_")):
                 scans = [e for e in hand if tag in e.key]
@@ -1568,6 +1659,17 @@ def main() -> int:
         s.moe_layer_phase(t)
     s.kimi_layer = None
     torch.cuda.empty_cache()
+    # head_dim 112 (kimi-k2-1t-a32b: H64/Hkv8): paged decode and prefill over
+    # bf16 and int8 pools, and the ring layout's decode and prefill over
+    # wrapped rings (window 2048 + chunk 256, recurrentgemma-2b's contexts).
+    # Their draws come from generators of their own, so every other phase
+    # and path sees the inputs it saw before these phases were added.
+    with s.own_generators(SEED + 112):
+        for decode in (True, False):
+            for int8 in (False, True):
+                s.attn_phase(decode, 8, int8, h=64, dh=112)
+        for sq in (1, 256):
+            s.ring_phase("kimi-k2-shaped", sq, 64, 8, 112, 2048, 2304, False, rg_ctx)
     print(f"[phases] kernel phases took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     launches = {}
@@ -1584,7 +1686,9 @@ def main() -> int:
                                         ("rwkv6-7b", "rwkv6-7b", 2048, 64, 1537),
                                         ("chatglm3-6b-compressed", "chatglm3-6b", 2048, 64,
                                          1537),
-                                        ("mixtral-8x22b", "mixtral-8x22b", 2048, 64, 1025)):
+                                        ("mixtral-8x22b", "mixtral-8x22b", 2048, 64, 1025),
+                                        ("kimi-k2-1t-a32b", "kimi-k2-1t-a32b", 2048, 64,
+                                         1025)):
         cfg = serve_config_of(get_config(arch))
         lens = s.rng.integers(lo, hi, 8)
         # one prompt wraps its ring where the prompts may pass the window
@@ -1621,7 +1725,10 @@ def main() -> int:
         if cfg.family == "rwkv":
             s.layerwise_check(cfg, params, prompts, path)
         elif cfg.family == "moe":
+            t_check = time.perf_counter()
             s.moe_layerwise_check(cfg, params, prompts, max_len, path)
+            print(f"[layers {path}] the layer-by-layer check took "
+                  f"{time.perf_counter() - t_check:.1f} s", flush=True)
         else:
             s.logits_check(cfg, params, prompts, max_len,
                            every_position=cfg.vocab_size <= 65536, path=path)

@@ -108,7 +108,8 @@ template <int DH, typename TQ, typename TKV, bool RING>
 __global__ void __launch_bounds__(SIMT_NTH) simt_kernel(Args a, int nqt, int QT, int GT) {
   constexpr int RM = RMAX, NTH = SIMT_NTH;
   constexpr int ACC = RM * DH / NTH;
-  static_assert(ACC >= 1 && (RM * DH) % NTH == 0, "tile shape");
+  static_assert(DH % 16 == 0, "head dim");
+  static_assert(ACC >= 1 && (RM * DH) % NTH == 0, "every output of the tile in some acc[e]");
   extern __shared__ float smem[];
   float* Qs = smem;                // [RM][DH]
   float* Ks = Qs + RM * DH;        // [KT][DH+1]
@@ -329,6 +330,13 @@ struct TcLayout {
   static constexpr int KROW = KRANGE + NS * 4 * 4;      // [KT] producer: rows of a tile
   static constexpr int ROWQ = KROW + KT * 4;            // [TR] row positions, then n_list
   static constexpr int LIST = ROWQ + TR * 4 + 16;       // [WR / KT] the ring's walked tiles
+  // 16-wide k-steps and n-tiles of the head dim, whole 16-byte chunks of a
+  // row (bf16 and int8), rows 16-byte aligned at an odd multiple of 16 bytes
+  // (every ldmatrix phase conflict-free), stages 16-byte aligned
+  static_assert(DH % 16 == 0, "head dim: whole k-steps, n-tiles and 16-byte chunks");
+  static_assert(RS * 2 % 32 == 16, "padded rows: 16-byte aligned, an odd number of chunks");
+  static_assert(STAGE % 16 == 0 && CONV % 16 == 0 && BARS % 8 == 0, "stage alignment");
+  static_assert(LIST <= 232448 - 1024, "shared memory: the layout and a 256-tile ring list");
 };
 
 template <int DH, typename TKV, bool RING>
@@ -710,11 +718,12 @@ int launch_dh(const Args& a, int B, int q_dtype, int kv_dtype, cudaStream_t st) 
   return launch_simt<DH, float, float, RING>(a, B, st);
 }
 
-// Sq > 1 of either layout: head_dim 64, 128 or 256.
+// Sq > 1 of either layout: head_dim 64, 112, 128 or 256.
 template <bool RING>
 int launch(const Args& a, int B, int Dh, int q_dtype, int kv_dtype, cudaStream_t st) {
   if (Dh == 256) return launch_dh<256, RING>(a, B, q_dtype, kv_dtype, st);
   if (Dh == 128) return launch_dh<128, RING>(a, B, q_dtype, kv_dtype, st);
+  if (Dh == 112) return launch_dh<112, RING>(a, B, q_dtype, kv_dtype, st);
   if (Dh == 64) return launch_dh<64, RING>(a, B, q_dtype, kv_dtype, st);
   return (int)cudaErrorInvalidValue;
 }

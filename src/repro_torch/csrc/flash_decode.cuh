@@ -131,6 +131,7 @@ template <int DH>
 __device__ void paged_merge(const DecodeArgs& a, const DecodeCta& c, float* scratch) {
   constexpr int NTH = DW * 32;
   constexpr int PER = GM * DH / NTH;  // outputs a thread
+  static_assert(DH % 16 == 0 && (GM * DH) % NTH == 0, "merge: every output of the head tile");
   __shared__ int last;
   __threadfence();  // this CTA's partials are visible before it is counted
   __syncthreads();
@@ -225,7 +226,12 @@ constexpr int decode_simt_smem_bytes() {
 
 template <int DH, typename TKV, bool PAGED>
 __global__ void __launch_bounds__(DW * 32) decode_simt(DecodeArgs a) {
-  constexpr int DPL = DH / 32;  // output dims a lane
+  // a lane owns the output dims [lane * DPL, lane * DPL + DPL); at a head dim
+  // that is not a multiple of 32 (112: DPL 4) the last lanes own none
+  constexpr int DPL = (DH + 31) / 32;
+  constexpr bool ALL_LANES = DH % 32 == 0;
+  static_assert(DH % 16 == 0, "K rows are read 8 values at a time");
+  static_assert(DH % DPL == 0 && 32 * DPL >= DH, "a lane owns all of its dims or none");
   static_assert(DW * GM * DCH + 2 * DW * GM >= MERGE_FLOATS, "merge scratch: p_s, m_s, l_s");
   extern __shared__ float smem[];
   float* q_s = smem;                     // [GM][DH], scaled by sm_scale
@@ -241,6 +247,7 @@ __global__ void __launch_bounds__(DW * 32) decode_simt(DecodeArgs a) {
   const TKV* v = static_cast<const TKV*>(a.v);
   const int gt = a.gt, b = c.b, kvh = c.kvh, qp = c.qp;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool owns = ALL_LANES || lane * DPL < DH;  // this lane's output dims exist
   for (int i = tid; i < gt * DH; i += DW * 32) {
     const long off = ((long)b * a.H + c.h0) * DH + i;
     q_s[i] = (a.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[off])
@@ -316,7 +323,7 @@ __global__ void __launch_bounds__(DW * 32) decode_simt(DecodeArgs a) {
         ld8f(vr, vv);
       } else {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j) vv[j] = to_f(vr[j]);
+        for (int j = 0; j < DPL; ++j) vv[j] = owns ? to_f(vr[j]) : 0.f;
       }
       if (a.v_scale) {
         const float vs = a.v_scale[ri];
@@ -352,7 +359,7 @@ __global__ void __launch_bounds__(DW * 32) decode_simt(DecodeArgs a) {
     f[g] = expf(m[g] - mx);
   }
   for (int w = 0; w < DW; ++w) {
-    if (warp == w) {
+    if (warp == w && owns) {
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         if (g >= gt) break;
@@ -440,10 +447,21 @@ __global__ void __launch_bounds__(DW * 32) decode_mma(DecodeArgs a) {
   constexpr bool I8 = std::is_same<TKV, int8_t>::value;
   constexpr int RS = DH + 8;  // padded row stride (16-bit values) of Q, K and V
   constexpr int EPL = 16 / (int)sizeof(TKV);         // values a 16-byte load
-  constexpr int NLD = DKT * DH / EPL / (DW * 32);     // loads a thread a tile, of K and of V
+  constexpr int NTH = DW * 32;
+  constexpr int NCH = DKT * (DH / EPL);               // 16-byte chunks of a K (or V) tile
+  constexpr int NLD = (NCH + NTH - 1) / NTH;          // loads a thread a tile, of K and of V
   constexpr int LB = NLD < 4 ? NLD : 4;               // loads in flight a batch
-  static_assert(NLD % LB == 0, "load batches");
+  // A load (i, thread) exists iff i < NLD and its chunk i * NTH + thread < NCH;
+  // both tests fold away where NTH divides NCH and LB divides NLD (head dims
+  // 64, 128 and 256), and mask the last batch's tail elsewhere (112: 7 bf16
+  // loads in batches of 4; int8 448 chunks, 3.5 a thread).
+  static_assert(DH % 16 == 0 && DH % EPL == 0, "whole 16-byte chunks a row, 16-wide k-steps");
+  static_assert((NLD + LB - 1) / LB * LB * NTH >= NCH, "the loads cover every chunk of a tile");
+  auto load_exists = [](int i, int ci) {
+    return (NLD % LB == 0 || i < NLD) && (NCH % NTH == 0 || ci < NCH);
+  };
   static_assert(DKT * RS >= MERGE_FLOATS, "merge scratch: K and V as floats");
+  static_assert((DW - 1) * (DH / 8) * 4 * 32 <= DKT * RS, "warp merge: K and V as floats");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [16][RS]
   __nv_bfloat16* Ks = Qs + 16 * RS;                                // [DKT][RS]
@@ -508,10 +526,10 @@ __global__ void __launch_bounds__(DW * 32) decode_mma(DecodeArgs a) {
       uint4 kr[LB], vr[LB];
 #pragma unroll
       for (int j = 0; j < LB; ++j) {
-        const int ci = tid + (i0 + j) * DW * 32, sidx = ci / (DH / EPL);
+        const int ci = tid + (i0 + j) * NTH, sidx = ci / (DH / EPL);
         const int d = (ci % (DH / EPL)) * EPL;
         kr[j] = vr[j] = make_uint4(0, 0, 0, 0);
-        if (kp_s[sidx] >= 0) {
+        if (load_exists(i0 + j, ci) && kp_s[sidx] >= 0) {
           const long row = row_s[sidx];
           kr[j] = *reinterpret_cast<const uint4*>(k + row * DH + d);
           vr[j] = *reinterpret_cast<const uint4*>(v + row * DH + d);
@@ -519,8 +537,9 @@ __global__ void __launch_bounds__(DW * 32) decode_mma(DecodeArgs a) {
       }
 #pragma unroll
       for (int j = 0; j < LB; ++j) {
-        const int ci = tid + (i0 + j) * DW * 32, sidx = ci / (DH / EPL);
+        const int ci = tid + (i0 + j) * NTH, sidx = ci / (DH / EPL);
         const int d = (ci % (DH / EPL)) * EPL;
+        if (!load_exists(i0 + j, ci)) continue;
         if constexpr (I8) {
           store_i8_as_f16(Ks + sidx * RS + d, kr[j]);
           store_i8_as_f16(Vs + sidx * RS + d, vr[j]);
@@ -698,8 +717,8 @@ int launch_decode_typed(const DecodeArgs& a, int B, bool mma, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The split pass for head dims 64, 128 and 256; gt = the largest head tile
-// of at most GM dividing the group.
+// The split pass for head dims 64, 112, 128 and 256; gt = the largest head
+// tile of at most GM dividing the group.
 template <bool PAGED>
 int launch_decode(DecodeArgs a, int B, int Dh, int q_dtype, int kv_dtype, cudaStream_t st) {
   if (a.Hkv < 1 || a.H % a.Hkv || a.S < 1 || a.kps < 1) return (int)cudaErrorInvalidValue;
@@ -714,7 +733,7 @@ int launch_decode(DecodeArgs a, int B, int Dh, int q_dtype, int kv_dtype, cudaSt
     if (kv_dtype == RT_I8) return launch_decode_typed<D, int8_t, PAGED>(a, B, mma, st);        \
     return launch_decode_typed<D, float, PAGED>(a, B, false, st);                           \
   }
-  RT_DEC(256) RT_DEC(128) RT_DEC(64)
+  RT_DEC(256) RT_DEC(128) RT_DEC(112) RT_DEC(64)
 #undef RT_DEC
   return (int)cudaErrorInvalidValue;
 }

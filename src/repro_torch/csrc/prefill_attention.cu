@@ -17,7 +17,7 @@
 // sequence occupies, a window skips the keys behind it, and an all-padding
 // CTA walks none.  A producer warp gathers each 64-key tile block by block
 // through the block table with cp.async, two or three tiles ahead of the
-// consumer warps.  Head dims 64, 128 and 256.
+// consumer warps.  Head dims 64, 112 (kimi-k2-1t-a32b's), 128 and 256.
 #include "flash_attention.cuh"
 
 extern "C" int rt_paged_prefill_attention(const void* q, const void* k, const void* v,

@@ -58,7 +58,12 @@ def _linear_specs(specs: dict):
 
 def card_limits(cfg, backend: str) -> list[str]:
     """Why the hand kernels cannot serve ``cfg`` through ``backend`` on the
-    card: one line a kernel limit the config crosses, empty when none.
+    card: one line a kernel limit the config crosses, empty when none.  The
+    attention kernels' head dims are checked for each kernel the backend
+    runs, under its own name: the paged backend's decode kernel
+    (``paged_attention.HEAD_DIMS``) and chunked-prefill kernel
+    (``prefill_attention.HEAD_DIMS``), the ring backend's ring kernel (the
+    prefill tuple: its decode shares the decode kernel's body).
     Kernels with no limit a config can cross (the RG-LRU scan; tt_linear,
     whose bf16 specs past the fused kernel's d <= 8 and ranks <= 32 take the
     staged kernel) are not listed.  int4 scales are bf16 wherever a config's
@@ -96,6 +101,9 @@ def card_limits(cfg, backend: str) -> list[str]:
         if backend == "paged":
             if cfg.head_dim not in _paged.HEAD_DIMS:
                 out.append(f"paged_attention (decode) takes head_dim {_paged.HEAD_DIMS}; "
+                           f"head_dim is {cfg.head_dim}")
+            if cfg.head_dim not in _prefill.HEAD_DIMS:
+                out.append(f"prefill_attention takes head_dim {_prefill.HEAD_DIMS}; "
                            f"head_dim is {cfg.head_dim}")
             if g % min(g, 16):
                 out.append(f"paged_attention (decode) takes a GQA group of at most 16 or a "

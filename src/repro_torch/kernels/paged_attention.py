@@ -87,7 +87,7 @@ def paged_attention_plain(q, cache: dict, block_tables, qpos, *, sm_scale=None,
                                 window=window, sm_scale=sm_scale)
 
 
-HEAD_DIMS = (64, 128, 256)  # what the decode kernel takes
+HEAD_DIMS = (64, 112, 128, 256)  # what the decode kernel takes
 KEY_TILE = 64      # entries a tile of the kernel's tensor-core body
 MAX_SPLIT = 256    # entries a split, while 64 splits cover the table
 MAX_SPLITS = 64    # most splits the in-launch merge takes
@@ -96,7 +96,9 @@ HEAD_TILE = 16     # most GQA heads a CTA
 
 def check_paged_args(q, cache, block_tables, qpos, sq: int, head_dims=HEAD_DIMS):
     """Device/dtype/shape/contiguity checks shared by both paged kernels;
-    ``head_dims``: the calling kernel's."""
+    ``head_dims``: the calling kernel's (the decode kernel's ``HEAD_DIMS``
+    by default, the prefill kernel's ``prefill_attention.HEAD_DIMS``); a
+    head dim past them is refused by name, never truncated."""
     b, h, dh = q.shape[0], q.shape[-2], q.shape[-1]
     if q.dtype not in (torch.float32, torch.bfloat16) or not q.is_contiguous():
         raise ValueError(f"q must be contiguous f32/bf16; got {q.dtype}")

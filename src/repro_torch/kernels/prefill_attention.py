@@ -26,7 +26,7 @@ from . import _build
 from .paged_attention import (NEG_INF, check_paged_args, paged_attention_plain,
                               ring_attention_plain)
 
-HEAD_DIMS = (64, 128, 256)  # what both layouts' kernels take for Sq > 1
+HEAD_DIMS = (64, 112, 128, 256)  # what both layouts' kernels take (ring: Sq = 1 too)
 ROW_TILE = 128  # (position, GQA head) rows a CTA of the bf16 tile
 KEY_TILE = 64   # entries a key tile
 

@@ -139,8 +139,21 @@ def _quantize(x):
     ("paged", 160, (140, 90), 12, 1, 10, 40, False),
 ])
 def test_tile_walk_matches_ref_and_interpret(layout, wr, ctx, sq, hkv, g, window, int8):
+    _tile_walk_case(layout, wr, ctx, sq, hkv, g, window, int8)
+
+
+@pytest.mark.parametrize("ctx,sq", [((140, 90, 0), 20), ((150, 37), 12)])
+def test_tile_walk_at_head_dim_112(ctx, sq):
+    """kimi-k2-1t-a32b's head dim (112: seven 16-wide k-steps and n-tiles)
+    and GQA group (8) over the paged layout, contexts not a multiple of the
+    64-entry key tile."""
+    _tile_walk_case("paged", 160, ctx, sq, 1, 8, 0, False, dh=112)
+
+
+def _tile_walk_case(layout, wr, ctx, sq, hkv, g, window, int8, dh=16):
+    """``tile_walk_attention`` against ``ref`` and ``pallas-interpret`` on
+    seeded inputs of one layout."""
     rng = np.random.default_rng(wr * 7 + sq + window)
-    dh = 16
     kpos, qpos = _ring(rng, wr, ctx, sq)
     b = len(ctx)
     q = rng.standard_normal((b, sq, hkv * g, dh)).astype(np.float32)

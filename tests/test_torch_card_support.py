@@ -47,11 +47,16 @@ def test_f32_activations_fit_the_int4_kernel():
 
 
 def test_kimi_k2_is_refused_for_its_head_dim():
-    """kimi-k2-1t-a32b's experts fit the grouped tt_linear; its head_dim 112
-    is past the attention kernels'."""
+    """kimi-k2-1t-a32b's experts fit the grouped tt_linear and its head_dim
+    112 fits both paged attention kernels, so its serving config has no card
+    limit; a head dim that no attention kernel takes (96) is refused on the
+    paged backend by name for the decode kernel and for the prefill kernel."""
     cfg = serve_config_of(get_config("kimi-k2-1t-a32b"))
-    assert dispatch.card_limits(cfg, default_backend(cfg)) == [
-        "paged_attention (decode) takes head_dim (64, 128, 256); head_dim is 112"]
+    assert default_backend(cfg) == "paged"
+    assert dispatch.card_limits(cfg, "paged") == []
+    assert dispatch.card_limits(cfg.replace(head_dim=96), "paged") == [
+        "paged_attention (decode) takes head_dim (64, 112, 128, 256); head_dim is 96",
+        "prefill_attention takes head_dim (64, 112, 128, 256); head_dim is 96"]
 
 
 @pytest.mark.parametrize("in_modes,out_modes,rank,dtype,fused", [

@@ -143,7 +143,7 @@ def _pool(nb, bs, hkv, dh, dtype, dev, g):
 @pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
                                       (torch.bfloat16, torch.bfloat16),
                                       (torch.bfloat16, torch.int8)])
-@pytest.mark.parametrize("h,hkv,dh", [(4, 4, 128), (8, 2, 64), (32, 2, 128)])
+@pytest.mark.parametrize("h,hkv,dh", [(4, 4, 128), (8, 2, 64), (32, 2, 128), (64, 8, 112)])
 @pytest.mark.parametrize("sq,window", [(1, 0), (70, 0), (9, 5)])
 def test_paged_attention_kernels(dev, sq, window, h, hkv, dh, qdt, kvdt):
     from repro_torch.kernels import paged_attention as pa
@@ -173,10 +173,12 @@ def test_paged_attention_kernels(dev, sq, window, h, hkv, dh, qdt, kvdt):
                                       (torch.bfloat16, torch.int8),
                                       (torch.float32, torch.int8)])
 @pytest.mark.parametrize("h,hkv,dh", [(4, 4, 64), (8, 4, 128), (32, 2, 128), (16, 1, 256),
-                                      (10, 1, 256)])
+                                      (10, 1, 256), (64, 8, 112), (4, 4, 112)])
 def test_paged_decode_splits(dev, h, hkv, dh, qdt, kvdt):
     """Paged decode over tables of 640 entries in 3 splits (GQA groups 1, 2,
-    16 and 10): contexts of 1 key, mid-block (37), past a split boundary
+    16, 10 and 8; head dim 112: f32 queries take decode_simt, whose lanes
+    own 4 dims each, and bf16 ones decode_mma, whose last load batch is
+    masked): contexts of 1 key, mid-block (37), past a split boundary
     (299), the full table (640), one split only (129) and an inactive row
     (qpos -1: zeros); one launch a call, and three calls in a row bitwise
     equal (the split counters reset and the merge runs in split order)."""
@@ -224,7 +226,7 @@ def _ring(b, wr, hkv, dh, dtype, dev, g, fill):
 @pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
                                       (torch.bfloat16, torch.bfloat16),
                                       (torch.bfloat16, torch.int8)])
-@pytest.mark.parametrize("h,hkv,dh", [(10, 1, 256), (4, 4, 128), (8, 2, 64)])
+@pytest.mark.parametrize("h,hkv,dh", [(10, 1, 256), (4, 4, 128), (8, 2, 64), (16, 2, 112)])
 @pytest.mark.parametrize("sq,window", [(1, 0), (1, 48), (70, 0), (40, 48)])
 def test_ring_attention_kernel(dev, sq, window, h, hkv, dh, qdt, kvdt):
     from repro_torch.kernels import prefill_attention as pf
@@ -253,7 +255,7 @@ def test_ring_attention_kernel(dev, sq, window, h, hkv, dh, qdt, kvdt):
 @pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
                                       (torch.bfloat16, torch.bfloat16),
                                       (torch.bfloat16, torch.int8)])
-@pytest.mark.parametrize("h,hkv,dh", [(10, 1, 256), (4, 4, 128), (8, 2, 64)])
+@pytest.mark.parametrize("h,hkv,dh", [(10, 1, 256), (4, 4, 128), (8, 2, 64), (8, 1, 112)])
 @pytest.mark.parametrize("window", [0, 2048])
 @pytest.mark.parametrize("fill,qpos", [((3000, 1200), (2999, -1)),   # wrapped, idle slot
                                        ((700, 2500), (699, 2499))])  # short, just wrapped
@@ -550,7 +552,8 @@ def _ring_scenario(kind, wr, sq, dev):
 
 
 @pytest.mark.parametrize("kvdt", [torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("h,hkv,dh", [(10, 1, 256), (16, 1, 128), (4, 4, 64), (6, 2, 256)])
+@pytest.mark.parametrize("h,hkv,dh", [(10, 1, 256), (16, 1, 128), (4, 4, 64), (6, 2, 256),
+                                      (64, 8, 112), (8, 8, 112)])
 @pytest.mark.parametrize("window", [0, 100])
 @pytest.mark.parametrize("layout", ["ring", "paged"])
 def test_flash_tile_edges(dev, layout, window, h, hkv, dh, kvdt):
@@ -558,7 +561,7 @@ def test_flash_tile_edges(dev, layout, window, h, hkv, dh, kvdt):
     tile) against the plain version, element by element in bf16: wrapped
     rings, interior empty tiles, a window edge inside a tile (window 100),
     padding rows and an all-padding sequence (zero output), head dims 64,
-    128 and 256, bf16 and int8 K/V.  One launch a call."""
+    112, 128 and 256, bf16 and int8 K/V.  One launch a call."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import prefill_attention as pf
     g = torch.Generator(device=dev).manual_seed(h * 7 + dh + window)
@@ -903,12 +906,13 @@ def test_apply_moe_full_width_layer(dev, arch, t):
 
 def test_moe_sessions_on_card(dev):
     """mixtral-8x22b's serving config is accepted on the card (the ring
-    backend); kimi-k2-1t-a32b's is refused for its head_dim 112."""
+    backend), and so is kimi-k2-1t-a32b's (the paged backend: its head_dim
+    112 is one the attention kernels take)."""
     from repro_torch.configs import get_config
     from repro_torch.models.sessions import SessionSpec, make_session
     from repro_torch.serve.steps import serve_config_of
     spec = SessionSpec(slots=1, max_len=64, cache_dtype="bfloat16")
     sess = make_session(serve_config_of(get_config("mixtral-8x22b")), spec, device=dev)
     assert sess.backend == "ring"
-    with pytest.raises(ValueError, match="head_dim is 112"):
-        make_session(serve_config_of(get_config("kimi-k2-1t-a32b")), spec, device=dev)
+    sess = make_session(serve_config_of(get_config("kimi-k2-1t-a32b")), spec, device=dev)
+    assert sess.backend == "paged"

@@ -45,8 +45,10 @@ def _paged_case(seed, ctx, hkv, g, dh, int8, bs=16, w=9):
 
 
 @pytest.mark.parametrize("hkv,g,dh,int8", [(4, 1, 16, False), (2, 2, 64, True),
-                                           (1, 16, 16, True), (2, 16, 64, False)],
-                         ids=["mha", "gqa2-int8", "gqa16-int8", "gqa16-dh64"])
+                                           (1, 16, 16, True), (2, 16, 64, False),
+                                           (1, 8, 112, True)],
+                         ids=["mha", "gqa2-int8", "gqa16-int8", "gqa16-dh64",
+                              "gqa8-int8-dh112"])
 def test_split_paged_decode_matches_ref_and_interpret(hkv, g, dh, int8):
     """Contexts ending mid-block (37), a single key (1), the full table
     (144), a context whose last split is partly past it (70) and an inactive

@@ -48,12 +48,15 @@ ARCHS = ["mixtral-8x22b", "kimi-k2-1t-a32b"]
 _SETUPS = {}
 
 
-def _setup(arch, quant=True):
+def _setup(arch, quant=True, head_dim=None):
     """f32 reduced config with int4 (group 32) on q/k/v and the router, TT
-    (d 3, rank 4) on attn_o and the experts, both packages' params."""
-    key = (arch, quant)
+    (d 3, rank 4) on attn_o and the experts, both packages' params;
+    ``head_dim`` replaces the reduced config's (16)."""
+    key = (arch, quant, head_dim)
     if key not in _SETUPS:
         base = jget(arch, reduced=True)
+        if head_dim is not None:
+            base = base.replace(head_dim=head_dim)
         jcfg = base.replace(compute_dtype="float32", param_dtype="float32",
                             quant=JQuant(enabled=quant, bits=4, group_size=32))
         tcfg = config_from_dict(config_to_dict(jcfg))
@@ -207,10 +210,16 @@ def _logits_case(s, backend):
         yield tl, jl
 
 
-@pytest.mark.parametrize("arch,backend", [("mixtral-8x22b", "ring"),
-                                          ("kimi-k2-1t-a32b", "paged")])
-def test_session_logits_and_engine_tokens_match_repro(arch, backend):
-    s = _setup(arch)
+@pytest.mark.parametrize("arch,backend,head_dim", [
+    pytest.param("mixtral-8x22b", "ring", None, id="mixtral-8x22b-ring"),
+    pytest.param("kimi-k2-1t-a32b", "paged", None, id="kimi-k2-1t-a32b-paged"),
+    pytest.param("kimi-k2-1t-a32b", "paged", 112, id="kimi-k2-1t-a32b-paged-dh112"),
+])
+def test_session_logits_and_engine_tokens_match_repro(arch, backend, head_dim):
+    """Reduced configs' session logits against repro's at 2e-4, then their
+    greedy Engine tokens equal repro's; kimi-k2 also at its own head dim,
+    112 (the reduced config's is 16)."""
+    s = _setup(arch, head_dim=head_dim)
     assert make_session(s["tcfg"], SessionSpec(slots=1, max_len=32), device="cpu").backend \
         == backend
     for got, want in _logits_case(s, backend):

@@ -12,13 +12,13 @@ from repro_torch.serve.steps import serve_config_of
 # refused by the KV backends before any kernel limit is checked.
 FITTING_ARCHS = ("llama2-7b", "chatglm3-6b", "tinyllama-1.1b", "recurrentgemma-2b",
                  "rwkv6-7b", "granite-3-8b", "phi4-mini-3.8b", "qwen1.5-110b",
-                 "mixtral-8x22b")
+                 "mixtral-8x22b", "kimi-k2-1t-a32b")
 
 REFUSALS = {
     "int4_group": "int4_matmul takes K % 32 == 0 and group % 16 == 0",
     "wkv_head_dim": "wkv_scan takes head dims (16, 32, 64)",
-    "paged_head_dim": "paged_attention (decode) takes head_dim (64, 128, 256)",
-    "ring_head_dim": "ring_attention takes head_dim (64, 128, 256)",
+    "paged_head_dim": "paged_attention (decode) takes head_dim (64, 112, 128, 256)",
+    "ring_head_dim": "ring_attention takes head_dim (64, 112, 128, 256)",
     "moe_int4_experts": NON_TT_EXPERTS,
     "moe_dense_experts": NON_TT_EXPERTS,
 }
@@ -35,8 +35,8 @@ def refused_config(case: str):
                        "paged"),
         "wkv_head_dim": (serve_config_of(get_config("rwkv6-7b")).replace(rwkv_head_dim=128),
                          "recurrent"),
-        "paged_head_dim": (llama.replace(head_dim=112), "paged"),  # kimi-k2's head_dim
-        "ring_head_dim": (llama.replace(head_dim=112, window=4096), "ring"),
+        "paged_head_dim": (llama.replace(head_dim=96), "paged"),  # a head dim no kernel takes
+        "ring_head_dim": (llama.replace(head_dim=96, window=4096), "ring"),
         "moe_int4_experts": (mixtral.replace(ttd=no_tt_experts), "ring"),
         "moe_dense_experts": (mixtral.replace(ttd=no_tt_experts,
                                               quant=dataclasses.replace(mixtral.quant,

@@ -7,7 +7,7 @@ under ~0.05 ms a call that figure carries the wrapper's host time.  These
 probes read each call's device time from ``torch.profiler`` instead.  Run
 from the repository root on a machine with the card:
 
-    python3 tools/port_probe.py device-times [TREE]   # decode attention, wkv, RG-LRU phases
+    python3 tools/port_probe.py device-times [TREE]   # decode attention (Dh 112 too), wkv, RG-LRU
     python3 tools/port_probe.py griffin [TREE]        # recurrentgemma-2b tick and chunk
     python3 tools/port_probe.py splits 128 256 384    # paged decode by entries a split
     python3 tools/port_probe.py wkv-phases            # wkv prefill, one phase switched off
@@ -115,6 +115,10 @@ def device_times(tree: Path) -> None:
         for int8 in (False, True):
             s.attn_phase(True, 1, int8, h=10, dh=256)
             report(s, tag, f"paged decode H10/Hkv1/Dh256 {'int8' if int8 else 'bf16'}")
+    if 112 in pa.HEAD_DIMS:  # kimi-k2-1t-a32b's heads; trees before it lack them
+        for int8 in (False, True):
+            s.attn_phase(True, 8, int8, h=64, dh=112)
+            report(s, tag, f"paged decode H64/Hkv8/Dh112 {'int8' if int8 else 'bf16'}")
     for int8 in (False, True):
         s.ring_phase("recurrentgemma-2b", 1, 10, 1, 256, 2048, 2304, int8,
                      (3000, 2400, 1500, 256, 3900, 700, 0, 2304))
