@@ -47,7 +47,16 @@ then:
       device kernel time (``torch.profiler``), the device's busy share, the
       top kernels, each hand kernel's time, the attention kernels' time, the
       count of device kernels and of device-to-host copies a call (none on
-      the MoE paths') and the scans' device time a launch.
+      the MoE paths') and the scans' device time a launch;
+   d. on llama2-7b only, the serving front end: ``[frontend]`` serves 12
+      requests through ``Engine.run`` and the ``AsyncEngine`` without and
+      with dispatch-ahead (bitwise the same tokens, every ahead dispatch
+      under ``torch.cuda.set_sync_debug_mode("error")``, decode wall a tick
+      by arm, a profiled window of pump ticks), and ``[traffic]`` replays 32
+      seeded Poisson requests with cancels and deadlines through
+      ``traffic.drive`` with dispatch-ahead on and off (TTFT and inter-token
+      percentiles, tokens/s, goodput, the schema check, JSONL traces under
+      ``chiprun_out/`` validated).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  It exits
@@ -170,6 +179,14 @@ def tt_row_flops(spec) -> int:
                              + 2 * r[i] * prod[i][m] * r[m + 1] * prod[m + 1][j] * r[j + 1]
                              for m in range(i, j))
     return cost[0][d - 1]
+
+
+def kernel_events(prof):
+    """The profile's device kernels and copies by name.  "Command Buffer Full"
+    is the driver's record of the host waiting on a full launch queue, not
+    device work: it once read 56 ms of a chunk."""
+    return [e for e in prof.key_averages() if e.device_time_total > 0
+            and not e.key.startswith(("aten::", "cuda", "Command Buffer Full"))]
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS):
@@ -1230,23 +1247,29 @@ class Smoke:
             self.failures.append(f"{path} full-width layer-by-layer check")
 
     # -- serve phase (a main path) ---------------------------------------------
+    def engine(self, cfg, params, max_len, **kw):
+        """An Engine at the serve geometry: 8 slots, block 16, 256-token
+        prefill chunks, prefill batch 4, bf16 cache."""
+        from repro_torch.serve.engine import Engine
+        return Engine(cfg, params, slots=8, max_len=max_len, block_size=16, prefill_chunk=256,
+                      prefill_batch=4, cache_dtype="bfloat16", device=self.dev, **kw)
+
+    # -- serve phase (a main path) ---------------------------------------------
     def serve(self, cfg, params, card, prompts, max_len, path):
         torch = self.torch
         np = self.np
-        from repro_torch.serve.engine import Engine
-        eng = Engine(cfg, params, slots=8, max_len=max_len, block_size=16, prefill_chunk=256,
-                     prefill_batch=4, cache_dtype="bfloat16", device=self.dev)
+        eng = self.engine(cfg, params, max_len)
         dec = {"t": 0.0, "tokens": 0}
         orig_dispatch, orig_collect = eng._decode_dispatch, eng._decode_collect
 
-        def dispatch(active):
+        def dispatch(plan):
             dec["t0"] = time.perf_counter()
-            return orig_dispatch(active)
+            return orig_dispatch(plan)
 
-        def collect(active, toks):
-            orig_collect(active, toks)
+        def collect(plan, toks):
+            orig_collect(plan, toks)
             dec["t"] += time.perf_counter() - dec["t0"]
-            dec["tokens"] += len(active)
+            dec["tokens"] += len(plan.active)
 
         eng._decode_dispatch, eng._decode_collect = dispatch, collect
         torch.cuda.synchronize()
@@ -1510,10 +1533,7 @@ class Smoke:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             clock = sm_clock()
-            # "Command Buffer Full" is the driver's record of the host waiting on a
-            # full launch queue, not device work: it once read 56 ms of a chunk
-            events = [e for e in prof.key_averages() if e.device_time_total > 0
-                      and not e.key.startswith(("aten::", "cuda", "Command Buffer Full"))]
+            events = kernel_events(prof)
             device_s = sum(e.self_device_time_total for e in events) / 1e6
             top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
             # the hand kernels live in anonymous namespaces of csrc/ (attention tiles
@@ -1563,6 +1583,233 @@ class Smoke:
         report("prefill chunk (8 slots x 256 tokens at ctx ~1 K)", chunk, 1)
         del state
         torch.cuda.empty_cache()
+
+    # -- the async front end and traffic replay ----------------------------------
+    def path_checks(self, path, what, eng):
+        """The pool drained, every kernel of the path launched since the last
+        reset, no plain version on CUDA."""
+        counts = counters()
+        checks = {
+            "pool drained": eng.manager is None
+            or eng.num_free_blocks == eng.manager.num_blocks - 1,
+            "every kernel of the path launched": all(counts[k][0] > 0 for k in PATH_KERNELS[path]),
+            "no plain version on CUDA": not any(n for _, n in counts.values()),
+        }
+        for name, good in checks.items():
+            if not good:
+                self.failures.append(f"{what} {path}: {name}")
+        return checks
+
+    def frontend(self, cfg, params, card, max_len, path, window=(12, 10)):
+        """[frontend <path>]: 12 requests (prompts 64-1536 tokens, 48 new
+        tokens each, no eos), all submitted before the pump first runs,
+        served three ways on one engine: ``Engine.run``, the ``AsyncEngine``
+        without dispatch-ahead, and with it (the async arms twice, in the
+        order sync, ahead, ahead, sync), each ahead dispatch (tick N's token
+        copy and tick N+1's launch) under
+        ``torch.cuda.set_sync_debug_mode("error")``.  The tokens must be
+        bitwise the same.  Then both async arms again with a
+        ``torch.profiler`` window over ``window[1]`` pump ticks from
+        collection ``window[0]`` on (the device drained at its start): wall,
+        device time and busy share a tick (the profiler is warm by then: the
+        first window in a process carries its start-up)."""
+        import asyncio
+
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.serve.frontend import AsyncEngine
+        with self.own_generators(SEED + 22):  # the other paths' draws stay as they were
+            lens = self.rng.integers(64, 1537, 12)
+            prompts = [[int(t) for t in self.rng.integers(0, cfg.vocab_size, n)] for n in lens]
+        eng = self.engine(cfg, params, max_len)
+        orig_admit, orig_collect = eng._admit, eng._decode_collect
+        st: dict = {}
+
+        def admit():
+            t0 = time.perf_counter()
+            orig_admit()
+            st["admit_s"] += time.perf_counter() - t0
+
+        def collect(plan, tok_col, toks_host=None):
+            orig_collect(plan, tok_col, toks_host)
+            st["ticks"] += 1
+            w = st.get("window")
+            if w is None:
+                return
+            if st["ticks"] == window[0]:
+                torch.cuda.synchronize()
+                w["prof"].start()
+                w["t0"] = time.perf_counter()
+            elif st["ticks"] == window[0] + window[1]:
+                w["wall"] = time.perf_counter() - w["t0"]
+                torch.cuda.synchronize()
+                w["prof"].stop()
+
+        eng._admit, eng._decode_collect = admit, collect
+
+        def run(arm, profiled=False):
+            st.update(admit_s=0.0, ticks=0, checked=0)
+            if profiled:
+                st["window"] = {"prof": profile(activities=[ProfilerActivity.CPU,
+                                                            ProfilerActivity.CUDA])}
+            fe = None
+            torch.cuda.synchronize()
+            reset_counters()
+            t0 = time.perf_counter()
+            if arm == "Engine.run":
+                reqs = [eng.submit(p, max_tokens=48) for p in prompts]
+                eng.run()
+            else:
+                fe = AsyncEngine(engine=eng, dispatch_ahead=arm == "ahead")
+                if arm == "ahead" and not profiled:
+                    orig_ahead = fe._dispatch_ahead
+
+                    def checked(plan2, tok_col):
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            return orig_ahead(plan2, tok_col)
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+                            st["checked"] += 1
+                    fe._dispatch_ahead = checked
+
+                async def go():
+                    hs = [fe.submit(p, max_tokens=48) for p in prompts]
+                    await fe.drain()
+                    return [h.req for h in hs]
+                reqs = asyncio.run(go())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ahead = fe.stats["ahead_ticks"] if fe is not None else 0
+            w = st.pop("window", None)
+            out = dict(tokens=[r.out_tokens for r in reqs], wall=wall, ticks=st["ticks"],
+                       ahead=ahead, decode_tick_ms=(wall - st["admit_s"]) / st["ticks"] * 1e3,
+                       checked=st["checked"])
+            self.path_checks(path, f"frontend {arm}", eng)
+            if not all(r.done and len(r.out_tokens) == 48 for r in reqs):
+                self.failures.append(f"frontend {path} {arm}: a request ended short of 48 tokens")
+            if w is not None:
+                device_s = sum(e.self_device_time_total for e in kernel_events(w["prof"])) / 1e6
+                out.update(prof_wall_ms=w["wall"] / window[1] * 1e3,
+                           prof_device_ms=device_s / window[1] * 1e3,
+                           busy=device_s / w["wall"])
+            return out
+
+        arms: dict[str, list] = {}
+        # the async arms alternate (sync, ahead, ahead, sync), so their
+        # difference is read against each one's own spread
+        for arm in ("Engine.run", "sync", "ahead", "ahead", "sync"):
+            try:
+                a = run(arm)
+            except RuntimeError as e:  # a sync inside an ahead dispatch raises here
+                self.failures.append(f"frontend {path} {arm}: {type(e).__name__}: {e}")
+                return
+            arms.setdefault(arm, []).append(a)
+            print(f"[frontend {path}] {card}: {arm}: {a['ticks']} decode ticks, {a['ahead']} "
+                  f"dispatched ahead; run wall {a['wall']:.3f} s, decode wall per tick "
+                  f"{a['decode_tick_ms']:.2f} ms (run wall less the admissions' prefill, over "
+                  f"the ticks); ahead dispatches checked under sync debug mode 'error': "
+                  f"{a['checked']}", flush=True)
+        for arm in ("sync", "ahead"):
+            a = run(arm, profiled=True)
+            arms[arm].append(a)
+            print(f"[frontend {path}] {card}: profile of {window[1]} pump ticks from tick "
+                  f"{window[0]}, dispatch-ahead {'on' if arm == 'ahead' else 'off'}: wall "
+                  f"{a['prof_wall_ms']:.2f} ms, device kernel time {a['prof_device_ms']:.2f} ms, "
+                  f"device busy share {a['busy']:.3f} a tick; SM clock, power just after: "
+                  f"{sm_clock()}", flush=True)
+        del eng._admit, eng._decode_collect
+        every = [a for runs in arms.values() for a in runs]
+        for what, key, profiled in (("decode wall per tick (ms)", "decode_tick_ms", False),
+                                    ("profiled wall per tick (ms)", "prof_wall_ms", True),
+                                    ("profiled device busy share", "busy", True)):
+            print(f"[frontend {path}] {card}: {what} by arm, in run order: " + "; ".join(
+                f"{k} {', '.join(f'{a[key]:.3f}' for a in runs if ('busy' in a) == profiled)}"
+                for k, runs in arms.items() if any(('busy' in a) == profiled for a in runs)),
+                flush=True)
+        checks = {"Engine.run, sync and ahead tokens bitwise the same (every run)":
+                      all(a["tokens"] == every[0]["tokens"] for a in every),
+                  "ahead_ticks > 0": all(a["ahead"] > 0 for a in arms["ahead"]),
+                  "every ahead dispatch ran under sync debug mode 'error'":
+                      all(a["checked"] == a["ahead"] for a in arms["ahead"] if "busy" not in a),
+                  "the same ticks in every run": len({a["ticks"] for a in every}) == 1}
+        for what, good in checks.items():
+            if not good:
+                self.failures.append(f"frontend {path}: {what}")
+        print(f"[frontend {path}] prompts={[len(p) for p in prompts]}; checks: {checks}",
+              flush=True)
+
+    def traffic(self, cfg, params, card, max_len, path):
+        """[traffic <path>]: 32 requests of seeded Poisson traffic at 4 per
+        second (prompts 128/512/1536, 16/64/128 new tokens, TTFT SLO 2 s,
+        deadline 30 s, a fifth of the clients cancelling 0.2-2 s after
+        submit) replayed open-loop through ``traffic.drive`` with
+        dispatch-ahead on, then off, each with an Observer streaming a JSONL
+        trace (under the gitignored ``chiprun_out/``).  The rows must pass the
+        traffic schema check and the traces validate; completed requests hold
+        exactly their budget, cancelled ones fewer; the pool drains; no plain
+        version runs on CUDA.  Speeds are printed, not gated."""
+        torch = self.torch
+        from repro_torch import traffic as tr
+        from repro_torch.obs import ObsConfig, Observer, validate_jsonl
+        from repro_torch.serve.frontend import AsyncEngine
+        spec = tr.WorkloadSpec(arrival="poisson", n_requests=32, rate_rps=4.0,
+                               prompt_len_buckets=(128, 512, 1536),
+                               prompt_len_weights=(0.5, 0.35, 0.15),
+                               out_tokens_buckets=(16, 64, 128),
+                               out_tokens_weights=(0.5, 0.35, 0.15), vocab=cfg.vocab_size,
+                               ttft_slo_s=2.0, deadline_s=30.0, cancel_prob=0.2,
+                               cancel_window_s=(0.2, 2.0), seed=7)
+        work = tr.make_workload(spec)
+        rows = []
+        for ahead in (True, False):
+            trace = ROOT / "chiprun_out" / f"traffic_{path}_{'ahead' if ahead else 'sync'}.jsonl"
+            trace.unlink(missing_ok=True)
+            obs = Observer(ObsConfig(jsonl_path=str(trace)))
+            fe = AsyncEngine(engine=self.engine(cfg, params, max_len, obs=obs),
+                             dispatch_ahead=ahead)
+            torch.cuda.synchronize()
+            reset_counters()
+            res = tr.drive(fe, work)
+            torch.cuda.synchronize()
+            obs.close()
+            row = tr.traffic_row(result=res, registry=obs.registry, family=cfg.family, arch=path,
+                                 scenario=f"poisson-4rps ahead={'on' if ahead else 'off'}",
+                                 workload=spec.to_dict())
+            row["ahead_share"] = fe.stats["ahead_ticks"] / max(fe.stats["ticks"], 1)
+            rows.append(row)
+            bad = [f"request {o.idx}: {o.finish_reason} with {o.n_tokens} of {w.max_tokens}"
+                   for o, w in zip(res.outcomes, work)
+                   if (o.n_tokens != w.max_tokens if o.completed else o.n_tokens >= w.max_tokens)]
+            errors = validate_jsonl(trace)
+            own = {"completed hold their budget, cancelled fewer": not bad,
+                   "trace validates": not errors}
+            for what, good in own.items():
+                if not good:
+                    self.failures.append(f"traffic {path} ahead={ahead}: {what} "
+                                         f"{bad[:3] or errors[:3]}")
+            checks = self.path_checks(path, f"traffic ahead={ahead}", fe.engine) | own
+            ms = {k: {q: (v * 1e3 if v is not None else None) for q, v in row[k].items()
+                      if q in ("p50", "p95", "p99")} for k in ("ttft_s", "inter_token_s")}
+            print(f"[traffic {path}] {card}: dispatch-ahead {'on' if ahead else 'off'}: TTFT "
+                  f"p50/p95/p99 {ms['ttft_s']['p50']:.1f} / {ms['ttft_s']['p95']:.1f} / "
+                  f"{ms['ttft_s']['p99']:.1f} ms; inter-token p50/p99 "
+                  f"{ms['inter_token_s']['p50']:.2f} / {ms['inter_token_s']['p99']:.2f} ms; "
+                  f"{row['tok_per_s']:.1f} tokens/s, goodput {row['goodput_tok_per_s']:.1f} "
+                  f"tokens/s; {row['n_completed']} completed, {row['n_cancelled']} cancelled, "
+                  f"{row['n_deadline_missed']} deadline-missed, {row['n_slo_attained']} in SLO "
+                  f"of {row['n_requests']}; {row['decode_ticks']} decode ticks, ahead share "
+                  f"{row['ahead_share']:.3f}; wall {row['wall_s']:.2f} s; {len(obs.trace.events)} "
+                  f"events in {trace.name}; checks: {checks}", flush=True)
+            del fe
+            torch.cuda.empty_cache()
+        try:
+            tr.check_traffic_schema({"scenarios": [r["scenario"] for r in rows],
+                                     "note": "chip_smoke traffic replay", "rows": rows},
+                                    diversity={"scenario": 2})
+        except ValueError as e:
+            self.failures.append(f"traffic {path}: schema: {e}")
 
 
 def main() -> int:
@@ -1740,6 +1987,13 @@ def main() -> int:
         launches.update({k: counts[k] for k in PATH_KERNELS[path] if k not in launches})
         launches[path] = counts
         s.profile(cfg, params, card, max_len, path)
+        if path == "llama2-7b":  # the serving front end on the paper's main path
+            t_front = time.perf_counter()
+            s.frontend(cfg, params, card, max_len, path)
+            t_traffic = time.perf_counter()
+            s.traffic(cfg, params, card, max_len, path)
+            print(f"[frontend {path}] took {t_traffic - t_front:.1f} s; [traffic {path}] "
+                  f"{time.perf_counter() - t_traffic:.1f} s", flush=True)
     del params
     torch.cuda.empty_cache()
 

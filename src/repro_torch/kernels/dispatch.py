@@ -14,11 +14,21 @@ and its limit; the device rule leaves no other route for such a config.
 ``dense_linear`` has no hand kernel, as ``repro``'s has no Pallas one: it is
 one ``torch.matmul`` on f32-upcast operands plus the epilogue, the way XLA's
 f32-accumulating dot is in the JAX package.
+
+Every op counts its calls by (role, route) in a module-local registry
+(``kernel_metrics``, ``dispatch_counts``; ``repro.kernels.dispatch:112-160``
+is the counterpart): route ``cuda`` is the hand kernel, ``plain`` the plain
+PyTorch version (``dense_linear``'s only route).  A count is a host-side
+float add: it adds no device sync to a tick.  Inside an explicit
+``kernel_timing()`` context each call is also fenced with
+``torch.cuda.synchronize()`` before and after and its wall time recorded in
+the ``kernel_wall_seconds`` histogram; nothing else turns the fence on.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import time
 
 import torch
 
@@ -29,10 +39,68 @@ from . import scan_rglru as _rglru
 from . import scan_wkv as _wkv
 from . import tt_embed as _embed
 from . import tt_linear as _tt
+from ..obs.registry import MetricsRegistry
 from .epilogue import apply_epilogue
 
 _plain: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "repro_torch_force_plain", default=False)
+_timed: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_kernel_timing", default=False)
+_METRICS = MetricsRegistry()
+_COUNTERS: dict = {}  # (role, route) -> its Counter, skipping the label sort
+
+
+def kernel_metrics() -> MetricsRegistry:
+    """Registry holding ``kernel_dispatch_total{role,route}`` counters and
+    (inside ``kernel_timing()``) ``kernel_wall_seconds`` histograms."""
+    return _METRICS
+
+
+def dispatch_counts() -> dict[tuple[str, str], int]:
+    """{(role, route): calls} since the last ``reset_dispatch_metrics()``."""
+    return {(lab["role"], lab["route"]): int(m.value)
+            for name, lab, m in _METRICS.collect() if name == "kernel_dispatch_total"}
+
+
+def reset_dispatch_metrics() -> None:
+    _METRICS.reset()
+    _COUNTERS.clear()
+
+
+@contextlib.contextmanager
+def kernel_timing():
+    """Fence and time every op called inside (``kernel_wall_seconds``)."""
+    token = _timed.set(True)
+    try:
+        yield
+    finally:
+        _timed.reset(token)
+
+
+def _start(t):
+    """A start stamp inside ``kernel_timing()`` (after a fence), else None."""
+    if not _timed.get():
+        return None
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return time.perf_counter()
+
+
+def _record(role: str, t0, t, out, route: str | None = None):
+    """Count one call of ``role`` on ``t``'s route (the hand kernel for a
+    CUDA tensor outside ``force_plain()``); time it when ``t0`` is set."""
+    route = route or ("cuda" if t.is_cuda and not _plain.get() else "plain")
+    c = _COUNTERS.get((role, route))
+    if c is None:
+        c = _COUNTERS[(role, route)] = _METRICS.counter(
+            "kernel_dispatch_total", role=role, route=route)
+    c.inc()
+    if t0 is not None:
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        _METRICS.histogram("kernel_wall_seconds", role=role, route=route).observe(
+            time.perf_counter() - t0)
+    return out
 
 
 def plain_forced() -> bool:
@@ -140,43 +208,44 @@ def check_card_support(cfg, device, backend: str) -> None:
 def dense_linear(x, w, *, scale=None, bias=None, residual=None,
                  activation: str | None = None):
     """y = act(x W [* scale] [+ b]) [+ residual];  (…, N) @ (N, M)."""
+    t0 = _start(x)
     y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
     y = apply_epilogue(y, scale=scale, bias=bias, residual=residual,
                        activation=activation)
-    return y.to(x.dtype)
+    return _record("dense", t0, x, y.to(x.dtype), route="plain")
 
 
 def tt_linear(x, cores, spec, *, scale=None, bias=None, residual=None,
               activation: str | None = None):
     """(…, N) -> (…, M) through the staged TT contraction + fused epilogue."""
     kw = dict(scale=scale, bias=bias, residual=residual, activation=activation)
-    if _plain.get():
-        return _tt.tt_linear_ref(x, cores, spec, **kw)
-    return _tt.tt_linear(x, cores, spec, **kw)
+    t0 = _start(x)
+    fn = _tt.tt_linear_ref if _plain.get() else _tt.tt_linear
+    return _record("tt", t0, x, fn(x, cores, spec, **kw))
 
 
 def tt_linear_grouped(x, offsets, cores, spec, *, activation: str | None = None):
     """(R, N) rows sorted by expert (expert e's rows ``offsets[e] :
     offsets[e + 1]``) -> (R, M) through the experts' stacked TT cores."""
-    if _plain.get():
-        return _tt.tt_linear_grouped_ref(x, offsets, cores, spec, activation=activation)
-    return _tt.tt_linear_grouped(x, offsets, cores, spec, activation=activation)
+    t0 = _start(x)
+    fn = _tt.tt_linear_grouped_ref if _plain.get() else _tt.tt_linear_grouped
+    return _record("tt_grouped", t0, x, fn(x, offsets, cores, spec, activation=activation))
 
 
 def int4_matmul(x, qweight, scales, *, group: int = 128, scale=None, bias=None,
                 residual=None, activation: str | None = None):
     """(…, K) -> (…, M) through the w4a16 kernel + fused epilogue."""
     kw = dict(scale=scale, bias=bias, residual=residual, activation=activation)
-    if _plain.get():
-        return _int4.int4_matmul_ref(x, qweight, scales, group, **kw)
-    return _int4.int4_matmul(x, qweight, scales, group, **kw)
+    t0 = _start(x)
+    fn = _int4.int4_matmul_ref if _plain.get() else _int4.int4_matmul
+    return _record("int4", t0, x, fn(x, qweight, scales, group, **kw))
 
 
 def paged_attention(q, cache, block_tables, qpos, *, sm_scale=None):
     """Decode attention, q (B, H, Dh), qpos (B,) (-1 = inactive row -> 0)."""
-    if _plain.get():
-        return _paged.paged_attention_ref(q, cache, block_tables, qpos, sm_scale=sm_scale)
-    return _paged.paged_attention(q, cache, block_tables, qpos, sm_scale=sm_scale)
+    t0 = _start(q)
+    fn = _paged.paged_attention_ref if _plain.get() else _paged.paged_attention
+    return _record("attn_paged", t0, q, fn(q, cache, block_tables, qpos, sm_scale=sm_scale))
 
 
 def prefill_attention(q, qpos, *, cache=None, block_tables=None, k=None, v=None,
@@ -200,16 +269,15 @@ def prefill_attention(q, qpos, *, cache=None, block_tables=None, k=None, v=None,
         raise ValueError("k_scale and v_scale must be passed together")
     if k_scale is not None and not ring:
         raise ValueError("k_scale/v_scale are ring-layout only")
+    t0 = _start(q)
     if paged:
         kw = dict(cache=cache, block_tables=block_tables, window=window, sm_scale=sm_scale)
-        if _plain.get():
-            return _prefill.prefill_attention_ref(q, qpos, **kw)
-        return _prefill.prefill_attention(q, qpos, **kw)
+        fn = _prefill.prefill_attention_ref if _plain.get() else _prefill.prefill_attention
+        return _record("attn_prefill", t0, q, fn(q, qpos, **kw))
     kw = dict(k=k, v=v, kpos=kpos, window=window, sm_scale=sm_scale, k_scale=k_scale,
               v_scale=v_scale)
-    if _plain.get():
-        return _prefill.ring_attention_ref(q, qpos, **kw)
-    return _prefill.ring_attention(q, qpos, **kw)
+    fn = _prefill.ring_attention_ref if _plain.get() else _prefill.ring_attention
+    return _record("attn_ring", t0, q, fn(q, qpos, **kw))
 
 
 def rglru_scan(log_a, gx, h0, pos=None, *, scan_dtype=None):
@@ -217,9 +285,9 @@ def rglru_scan(log_a, gx, h0, pos=None, *, scan_dtype=None):
     (-1 = padding step: the state passes through bitwise).  Returns
     (h (B, S, W) scan_dtype, h_last (B, W) f32); S == 1 is the decode step.
     Both versions check the shapes and raise ``ValueError``."""
-    if _plain.get():
-        return _rglru.rglru_scan_ref(log_a, gx, h0, pos, scan_dtype=scan_dtype)
-    return _rglru.rglru_scan(log_a, gx, h0, pos, scan_dtype=scan_dtype)
+    t0 = _start(log_a)
+    fn = _rglru.rglru_scan_ref if _plain.get() else _rglru.rglru_scan
+    return _record("rglru_scan", t0, log_a, fn(log_a, gx, h0, pos, scan_dtype=scan_dtype))
 
 
 def rg_lru_gated(ga, gxp, u, lam, g, h0, pos=None, *, h_out=None):
@@ -230,18 +298,18 @@ def rg_lru_gated(ga, gxp, u, lam, g, h0, pos=None, *, h_out=None):
     -8·softplus(lam)·r, gx = i·u, the scan from h0, y = h·gelu_tanh(g).
     Returns (y (B, S, W) in u's dtype, h_last (B, W) f32, written into
     ``h_out`` when given, which may be h0)."""
-    if _plain.get():
-        return _rglru.rg_lru_gated_ref(ga, gxp, u, lam, g, h0, pos, h_out=h_out)
-    return _rglru.rg_lru_gated(ga, gxp, u, lam, g, h0, pos, h_out=h_out)
+    t0 = _start(u)
+    fn = _rglru.rg_lru_gated_ref if _plain.get() else _rglru.rg_lru_gated
+    return _record("rglru_gated", t0, u, fn(ga, gxp, u, lam, g, h0, pos, h_out=h_out))
 
 
 def tt_embed(ids, cores, spec):
     """Rows of a vocab-axis TT embedding table (``spec``: M = V, N = D):
     ids of any int shape (negative ids wrap once, then clamp) -> (..., D)
     f32."""
-    if _plain.get():
-        return _embed.tt_embed_ref(ids, cores, spec)
-    return _embed.tt_embed(ids, cores, spec)
+    t0 = _start(ids)
+    fn = _embed.tt_embed_ref if _plain.get() else _embed.tt_embed
+    return _record("embed_lookup", t0, ids, fn(ids, cores, spec))
 
 
 def wkv_scan(r, k, v, w, u, state0, pos=None, *, state_scale=None):
@@ -250,6 +318,7 @@ def wkv_scan(r, k, v, w, u, state0, pos=None, *, state_scale=None):
     (-1 = padding step).  Returns (y (B, S, H, hd) f32, new state, new scale
     or None); S > 1 takes the floored chunked form, S == 1 the exact step.
     Both versions check the shapes and raise ``ValueError``."""
-    if _plain.get():
-        return _wkv.wkv_scan_ref(r, k, v, w, u, state0, pos, state_scale=state_scale)
-    return _wkv.wkv_scan(r, k, v, w, u, state0, pos, state_scale=state_scale)
+    t0 = _start(r)
+    fn = _wkv.wkv_scan_ref if _plain.get() else _wkv.wkv_scan
+    return _record("wkv_scan", t0, r, fn(r, k, v, w, u, state0, pos,
+                                              state_scale=state_scale))

@@ -114,7 +114,11 @@ class PagedKVSession(InferenceSession):
         return logits, dict(state, kv=kv)
 
     def with_tables(self, state, block_tables):
-        """Swap host-packed (slots, W) block tables into the state."""
+        """Swap (slots, W) int32 block tables into the state.  The engine
+        hands over a tensor already on the device, staged through pinned
+        memory (``serve.steps.HostStage``): ``as_tensor`` and ``to`` leave
+        it as it is.  A host array (tests, one-off setups) is copied here,
+        and that copy blocks until the stream has drained."""
         bt = torch.as_tensor(block_tables, dtype=torch.int32).to(self.device)
         return dict(state, block_tables=bt)
 

@@ -916,3 +916,103 @@ def test_moe_sessions_on_card(dev):
     assert sess.backend == "ring"
     sess = make_session(serve_config_of(get_config("kimi-k2-1t-a32b")), spec, device=dev)
     assert sess.backend == "paged"
+
+
+# ---------------------------------------------------------------------------
+# The serving front end: dispatch-ahead on one stream, seeded sampling
+# ---------------------------------------------------------------------------
+def _llama_two_layers(dev):
+    """llama2-7b's serving config at full width, 2 layers (int4 block 0, TT
+    block 1), random params from seed 0 on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve.steps import serve_config_of
+    cfg = serve_config_of(get_config("llama2-7b")).replace(n_layers=2)
+    cfg = cfg.replace(ttd=dataclasses.replace(cfg.ttd, first_tt_block=1))
+    return cfg, transformer.init_lm(cfg, seed=0, device=dev)
+
+
+def _burst_async(fe, prompts, max_tokens):
+    import asyncio
+
+    async def go():
+        hs = [fe.submit(p, max_tokens=max_tokens) for p in prompts]
+        await fe.drain()
+        return [h.out_tokens for h in hs]
+    return asyncio.run(go())
+
+
+def test_ahead_dispatch_issues_no_sync(dev):
+    """Every ahead dispatch (tick N's token copy to pinned memory and tick
+    N+1's launch from tick N's device tokens) runs under
+    ``set_sync_debug_mode("error")`` without raising, and the AsyncEngine's
+    tokens, with dispatch-ahead on and off, equal the Engine's on a burst."""
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.frontend import AsyncEngine
+    cfg, params = _llama_two_layers(dev)
+    kw = dict(slots=4, max_len=256, block_size=16, prefill_chunk=64, prefill_batch=2,
+              cache_dtype="bfloat16", device=dev)
+    g = np.random.default_rng(3)
+    prompts = [[int(t) for t in g.integers(0, cfg.vocab_size, n)] for n in (70, 5, 130, 33, 9)]
+    eng = Engine(cfg, params, **kw)
+    reqs = [eng.submit(p, max_tokens=12) for p in prompts]
+    eng.run()
+    want = [r.out_tokens for r in reqs]
+    for ahead in (True, False):
+        fe = AsyncEngine(cfg, params, dispatch_ahead=ahead, **kw)
+        orig, checked = fe._dispatch_ahead, []
+
+        def under_error_mode(plan2, tok_col, orig=orig, checked=checked):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(plan2, tok_col)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                checked.append(1)
+        fe._dispatch_ahead = under_error_mode
+        assert _burst_async(fe, prompts, 12) == want
+        assert len(checked) == fe.stats["ahead_ticks"]
+        assert (fe.stats["ahead_ticks"] > 0) == ahead
+        assert fe.engine.num_free_blocks == fe.engine.manager.num_blocks - 1
+
+
+def test_seeded_sampling_on_card(dev):
+    """The batched draw on the card: reproducible from its seed, the draw
+    ``torch.multinomial`` makes, free of host syncs, ``top_k=1`` equal to
+    greedy; in the Engine, the same seed gives the same tokens with
+    dispatch-ahead on and off."""
+    from repro_torch.serve import steps
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.frontend import AsyncEngine
+    logits = torch.randn(8, 32000, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    gens = [torch.Generator(device=dev).manual_seed(7) for _ in range(3)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = steps.sample_tokens(logits, gens[0], temperature=0.8, top_k=50)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    b = steps.sample_tokens(logits, gens[1], temperature=0.8, top_k=50)
+    scaled = logits / 0.8
+    scaled = scaled.masked_fill(scaled < torch.topk(scaled, 50).values[:, -1:], float("-inf"))
+    c = torch.multinomial(torch.softmax(scaled, -1), 1, generator=gens[2]).to(torch.int32)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(steps.sample_tokens(logits, gens[0], top_k=1), steps.greedy_tokens(logits))
+    cfg, params = _llama_two_layers(dev)
+    kw = dict(slots=2, max_len=128, block_size=16, prefill_chunk=32, cache_dtype="bfloat16",
+              device=dev)
+    prompts = [list(range(3, 40)), list(range(100, 109)), list(range(7, 20))]
+
+    def run(**sample):
+        eng = Engine(cfg, params, **kw, **sample)
+        reqs = [eng.submit(p, max_tokens=10) for p in prompts]
+        eng.run()
+        return [r.out_tokens for r in reqs]
+
+    sampled = dict(greedy=False, temperature=0.9, top_k=40, seed=5)
+    first = run(**sampled)
+    assert run(**sampled) == first
+    assert run(greedy=False, top_k=1, seed=9) == run()
+    for ahead in (True, False):
+        fe = AsyncEngine(cfg, params, dispatch_ahead=ahead, **kw, **sampled)
+        assert _burst_async(fe, prompts, 10) == first

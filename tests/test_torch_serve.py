@@ -25,6 +25,7 @@ from repro_torch.models import sessions as tsessions
 from repro_torch.models import transformer as ttf
 from repro_torch.serve import kv_cache as tkv
 from repro_torch.serve.engine import Engine as TEngine
+from repro_torch.serve.frontend import AsyncEngine
 from torch_parity import jax_params
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -130,6 +131,7 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
                  lambda: tsessions.make_session(cfg, spec),
                  lambda: ttf.init_paged_cache(cfg, 4, 4),
                  lambda: TEngine(cfg, s["tparams"], slots=2, max_len=32),
+                 lambda: AsyncEngine(cfg, s["tparams"], slots=2, max_len=32),
                  lambda: ttf.init_lm(cfg, device="cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
