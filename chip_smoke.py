@@ -13,7 +13,10 @@ then:
    PyTorch library call's time as a yardstick where one exists, and the
    card's bound; each prefill attention phase also prints the key tiles its
    flash tile walks against the tiles its CTAs would walk without the
-   visible-tile rule; the MoE phases run the grouped tt_linear at
+   visible-tile rule; the int4 phases also run the decode GEMV at one and 16
+   tokens and time both bf16 routes (GEMV, wgmma GEMM) on the same inputs
+   at B 16-48, where the wrapper's crossover sits; the MoE phases run the
+   grouped tt_linear at
    mixtral-8x22b's and kimi-k2-1t-a32b's expert specs (seeded routings, one
    with every row on one expert, one with most experts empty), the routers'
    int4 linears on f32 activations, and one full-width kimi-k2 MoE layer;
@@ -47,7 +50,8 @@ then:
       device kernel time (``torch.profiler``), the device's busy share, the
       top kernels, each hand kernel's time, the attention kernels' time, the
       count of device kernels and of device-to-host copies a call (none on
-      the MoE paths') and the scans' device time a launch;
+      the MoE paths') and the scans' and the int4 kernels' device time a
+      call and a launch;
    d. on llama2-7b only, the serving front end: ``[frontend]`` serves 12
       requests through ``Engine.run`` and the ``AsyncEngine`` without and
       with dispatch-ahead (bitwise the same tokens, every ahead dispatch
@@ -80,6 +84,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor-core peak
 SEED = 0
 # Attention outputs are held element by element: |got - want| <= ATTN_ATOL *
 # max|want| of the element's own (query, head) row + ATTN_RTOL * |want|, each
@@ -315,7 +320,10 @@ class Smoke:
                     ms, plain_ms, lib_ms, "torch.matmul, dense reconstructed W",
                     nbytes, b * orders[order])
 
-    def int4_phase(self, k_in, m, b):
+    def int4_phase(self, k_in, m, b, routes=(None,)):
+        """``routes``: None takes the wrapper's route for B (the GEMV up to
+        GEMV_MAX_B, the GEMM above), "gemv" / "gemm" force one (the crossover
+        phases time both on the same weights and inputs)."""
         torch = self.torch
         from repro_torch.core.quant import dequantize_int4, quantize_int4
         from repro_torch.kernels import int4_matmul as k
@@ -326,24 +334,38 @@ class Smoke:
         x = self.randn(b, k_in, dtype=torch.bfloat16)
         epi = dict(residual=self.randn(b, m, dtype=torch.bfloat16)) if m < k_in else (
             dict(activation="silu") if m > k_in else {})
-        got = k.int4_matmul(x, ws[0]["qweight"], ws[0]["scales"], 128, **epi)
         want = k.int4_matmul_ref(x, ws[0]["qweight"], ws[0]["scales"], 128, **epi)
 
         def run(i, fn=k.int4_matmul):
             w = ws[i % copies]
             return fn(x, w["qweight"], w["scales"], 128, **epi)
 
-        ms = self.time_ms(run)
         plain_ms = self.time_ms(lambda i: run(i, k.int4_matmul_ref), iters=5)
         dq = [dequantize_int4(w).T.contiguous() for w in ws[:max(1, math.ceil(copies / 4))]]
         lib_ms = self.time_ms(lambda i: torch.matmul(x, dq[i % len(dq)]))
         del dq
         nbytes = 2 * x.numel() + wbytes + 2 * m * (k_in // 128) + 2 * b * m \
             + (2 * b * m if "residual" in epi else 0)
-        self.record("int4_matmul", f"{k_in}->{m} B={b}", got, want, 1e-2,
-                    "bf16 output rounding; products are exact and summed in f32 in both",
-                    ms, plain_ms, lib_ms, "torch.matmul, dequantized bf16 W",
-                    nbytes, 2.0 * b * k_in * m)
+        default = k.GEMV_MAX_B
+        for route in routes:
+            k.GEMV_MAX_B = {None: default, "gemv": 8 * k.GEMV_MAX_NT, "gemm": 0}[route]
+            try:
+                gemv = b <= k.GEMV_MAX_B
+                got = run(0)
+                ms = self.time_ms(run)
+            finally:
+                k.GEMV_MAX_B = default
+            if gemv:
+                p = k.gemv_plan(b, k_in, m, 128)
+                how = (f"GEMV: {p.ctas} CTAs of {p.warps} warps, {p.split.splits} K slices "
+                       f"of {p.split.per_k}")
+            else:
+                how = "wgmma GEMM"
+            self.record("int4_matmul", f"{k_in}->{m} B={b}" + (f" route {route}" if route else ""),
+                        got, want, 1e-2,
+                        f"bf16 output rounding; products are exact and summed in f32 in both; "
+                        f"{how}", ms, plain_ms, lib_ms, "torch.matmul, dequantized bf16 W",
+                        nbytes, 2.0 * b * k_in * m)
 
     def _pool(self, nb, hkv, int8, dh=128):
         torch = self.torch
@@ -848,17 +870,20 @@ class Smoke:
 
         f0 = k.f32_launches
         got = run(0)
-        if k.f32_launches != f0 + 2 or got.dtype != torch.float32:
-            self.failures.append(f"int4_matmul_f32 {k_in}->{m} B={b}: not the f32 path")
+        if k.f32_launches != f0 + 1 or got.dtype != torch.float32:
+            self.failures.append(f"int4_matmul_f32 {k_in}->{m} B={b}: not the f32 route")
         want = run(0, k.int4_matmul_ref)
         ms = self.time_ms(run)
         plain_ms = self.time_ms(lambda i: run(i, k.int4_matmul_ref), iters=5)
         wt = dequantize_int4(q, torch.float32).T.contiguous()
         lib_ms = self.time_ms(lambda i: torch.matmul(x, wt))
-        splits, _ = k.f32_splits(b, k_in, m)
+        p = k.f32_plan(b, k_in, m, 128)
         nbytes = 4 * b * k_in + m * k_in // 2 + 2 * m * (k_in // 128) + 4 * b * m
-        self.record("int4_matmul_f32", f"{arch} router {k_in}->{m} B={b} f32 x, {splits} K "
-                    "splits", got, want, 1e-4, "f32 products and sums in another order", ms,
+        tf32_ms, tf32_by = bound(nbytes, 2 * 2.0 * b * k_in * m, TF32_FLOPS)
+        self.record("int4_matmul_f32", f"{arch} router {k_in}->{m} B={b} f32 x, {p.ctas} CTAs "
+                    f"({p.split.splits} K slices); two TF32 passes' bound {tf32_ms:.4f} ms "
+                    f"({tf32_by})", got, want, 1e-4,
+                    "f32-accurate products (x in tf32 hi + lo), sums in another order", ms,
                     plain_ms, lib_ms, "torch.matmul, dequantized f32 W", nbytes,
                     2.0 * b * k_in * m, F32_FLOPS)
 
@@ -1562,11 +1587,14 @@ class Smoke:
                   f"{clock}", flush=True)
             if cfg.family == "moe" and dtoh:
                 self.failures.append(f"profile {path} {what}: {dtoh} device-to-host copies")
-            for name, tag in (("wkv_scan", "wkv_"), ("rglru_scan", "rglru_")):
+            for name, tag in (("wkv_scan", "wkv_"), ("rglru_scan", "rglru_"),
+                              ("int4_matmul", "int4_")):
                 scans = [e for e in hand if tag in e.key]
                 if scans:
-                    print(f"[profile {path}] {what}: {name} device time a launch "
-                          + "; ".join(f"{e.key[:40]} {e.self_device_time_total / e.count / 1e3:.4f} "
+                    total = sum(e.self_device_time_total for e in scans)
+                    print(f"[profile {path}] {what}: {name} device {total / n / 1e3:.3f} ms per "
+                          f"call; a launch "
+                          + "; ".join(f"{e.key[:52]} {e.self_device_time_total / e.count / 1e3:.4f} "
                                       f"ms ({e.count} launches)" for e in scans), flush=True)
 
         def decode():
@@ -1857,8 +1885,14 @@ def main() -> int:
     for k_in, m in ((4096, 4096), (4096, 11008), (11008, 4096), (2560, 2560), (2560, 256)):
         for b in (8, 2048):
             s.int4_phase(k_in, m, b)
-    for b in (17, 300):  # the prefill GEMM's edges: one partial token tile, a ragged third
+    for b in (17, 300):  # 17: the GEMV since its crossover moved to 24; 300: a ragged third GEMM tile
         s.int4_phase(4096, 4096, b)
+    for k_in, m in ((4096, 4096), (11008, 4096)):  # the decode GEMV at one and 16 slots
+        for b in (1, 16):
+            s.int4_phase(k_in, m, b)
+    for k_in, m in ((4096, 4096), (4096, 11008)):  # the crossover: both routes, one card
+        for b in (16, 17, 24, 32, 48):
+            s.int4_phase(k_in, m, b, routes=("gemv", "gemm"))
     for decode in (True, False):
         for hkv in (32, 2):
             for int8 in (False, True):

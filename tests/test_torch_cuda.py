@@ -94,11 +94,21 @@ def test_tt_linear_kernel(dev, modes, dtype, b):
     (1, 256, 96, 128), (8, 4096, 4096, 128), (8, 11008, 4096, 128),
     (33, 512, 200, 64), (300, 4096, 11008, 128), (2048, 256, 64, 32),
     (17, 4096, 4096, 128), (2047, 4096, 4096, 128), (2048, 2560, 256, 128),
-    (2048, 11008, 4096, 128)])
+    (2048, 11008, 4096, 128),
+    # the decode GEMV at the serve widths, B 1-16
+    (1, 4096, 11008, 128), (2, 4096, 11008, 128), (8, 4096, 11008, 128), (16, 4096, 11008, 128),
+    (1, 2560, 256, 128), (2, 2560, 256, 128), (8, 2560, 256, 128), (16, 2560, 256, 128),
+    # both sides of the crossover (GEMV_MAX_B) and the GEMV's widest token tiles
+    (16, 4096, 4096, 128), (24, 4096, 4096, 128), (32, 4096, 4096, 128),
+    (48, 4096, 4096, 128), (49, 4096, 4096, 128),
+    # every group size, M not a multiple of 16, a group deeper than a slice
+    (8, 4096, 4096, 16), (8, 4096, 4096, 32), (8, 512, 200, 64), (3, 4096, 1000, 128),
+    (5, 1024, 37, 16), (8, 4096, 512, 4096)])
 def test_int4_matmul_kernel(dev, b, k_in, m, group):
-    """B <= 16 takes the GEMV, B > 16 the wgmma GEMM: a partial token tile
-    (17, 300, 2047), M not a multiple of the 128-row tile (96, 200, 64),
-    K = 11008 (172 steps of 64), groups of 32, 64 and 128."""
+    """One launch a call: B <= GEMV_MAX_B (24) takes the split-K GEMV, above
+    it the wgmma GEMM (a partial token tile at 33, 49, 300, 2047); M not a
+    multiple of the 128-row tile or of 16 (96, 200, 64, 1000, 37), K = 11008
+    (172 steps of 64), groups of 16, 32, 64, 128 and one group for all of K."""
     from repro_torch.core.quant import quantize_int4
     from repro_torch.kernels import int4_matmul as k
     g = torch.Generator(device=dev).manual_seed(b)
@@ -107,11 +117,35 @@ def test_int4_matmul_kernel(dev, b, k_in, m, group):
     res = torch.randn(b, m, generator=g, device=dev).to(torch.bfloat16)
     bias = torch.randn(m, generator=g, device=dev)
     for kw in ({}, dict(bias=bias, activation="silu"), dict(residual=res, scale=bias)):
+        n0 = k.launches
         got = k.int4_matmul(x, q["qweight"], q["scales"], group, **kw)
+        assert k.launches == n0 + 1
         want = k.int4_matmul_ref(x.float(), q["qweight"], q["scales"], group,
                                  **{a: (v.float() if torch.is_tensor(v) else v)
                                     for a, v in kw.items()})
         _close(got, want, 1e-2)
+
+
+@pytest.mark.parametrize("b,k_in,m,dtype", [
+    (8, 4096, 4096, torch.bfloat16), (16, 11008, 4096, torch.bfloat16),
+    (8, 2560, 256, torch.bfloat16), (8, 7168, 384, torch.float32),
+    (2048, 7168, 384, torch.float32), (2048, 6144, 8, torch.float32)])
+def test_int4_matmul_split_k_is_bitwise_reproducible(dev, b, k_in, m, dtype):
+    """A row tile's K slices are summed in slice order inside their cluster,
+    so three calls give the same bits; a residual one element into its
+    buffer (not 16-byte aligned) is taken as well."""
+    from repro_torch.core.quant import quantize_int4
+    from repro_torch.kernels import int4_matmul as k
+    g = torch.Generator(device=dev).manual_seed(k_in + m)
+    q = quantize_int4(torch.randn(m, k_in, generator=g, device=dev) / math.sqrt(k_in), 128)
+    x = torch.randn(b, k_in, generator=g, device=dev).to(dtype)
+    res = torch.randn(b * m + 1, generator=g, device=dev).to(dtype)[1:].view(b, m)
+    outs = [k.int4_matmul(x, q["qweight"], q["scales"], 128, residual=res, activation="gelu")
+            for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    want = k.int4_matmul_ref(x.float(), q["qweight"], q["scales"], 128, residual=res.float(),
+                             activation="gelu")
+    _close(outs[0], want, 1e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
 def test_int4_nibble_conversion_all_bytes(dev):
@@ -836,9 +870,10 @@ def test_tt_linear_grouped_refuses_what_it_cannot_take(dev):
     (8, 7168, 384, 128), (2048, 7168, 384, 128),                      # kimi-k2 router
     (37, 256, 100, 32), (1, 64, 3, 16)])
 def test_int4_matmul_f32_activations(dev, b, k_in, m, group):
-    """f32 x takes the f32 path (2 launches: split-K tiles and their reduce)
-    and returns f32, against the plain version at 1e-4 of max|want| (f32
-    sums in another order); the epilogue in f32."""
+    """f32 x takes the f32 route (one launch: TF32 tiles whose K slices are
+    summed in their cluster) and returns f32, against the plain version at
+    1e-4 of max|want| (products within ~2^-22, sums in another order); the
+    epilogue in f32."""
     from repro_torch.core.quant import quantize_int4
     from repro_torch.kernels import int4_matmul as k
     g = torch.Generator(device=dev).manual_seed(b + m)
@@ -850,7 +885,7 @@ def test_int4_matmul_f32_activations(dev, b, k_in, m, group):
         n0, f0 = k.launches, k.f32_launches
         got = k.int4_matmul(x, q["qweight"], q["scales"], group, **kw)
         assert got.dtype == torch.float32
-        assert (k.launches, k.f32_launches) == (n0 + 2, f0 + 2)
+        assert (k.launches, k.f32_launches) == (n0 + 1, f0 + 1)
         want = k.int4_matmul_ref(x, q["qweight"], q["scales"], group, **kw)
         _close(got, want, 1e-4)
 
@@ -884,9 +919,9 @@ def test_apply_moe_full_width_layer(dev, arch, t):
           int4_matmul.plain_cuda_calls)
     y, aux = moe.apply_moe(p, x, specs, cfg, torch.bfloat16)
     torch.cuda.synchronize()
-    # gate, up and down: 2 launches each; the router: 2
+    # gate, up and down: 2 launches each; the router: 1
     assert (tt_linear.grouped_launches, int4_matmul.f32_launches, tt_linear.plain_cuda_calls,
-            int4_matmul.plain_cuda_calls) == (c0[0] + 6, c0[1] + 2, c0[2], c0[3])
+            int4_matmul.plain_cuda_calls) == (c0[0] + 6, c0[1] + 1, c0[2], c0[3])
     _, gates, eids = moe.route(p, x[0], specs, cfg)
     with dispatch.force_plain():
         yw, auxw = moe.apply_moe(p, x, specs, cfg, torch.bfloat16)

@@ -13,6 +13,10 @@ from the repository root on a machine with the card:
     python3 tools/port_probe.py wkv-phases            # wkv prefill, one phase switched off
     python3 tools/port_probe.py rglru-variants        # RG-LRU prefill, design variants
     python3 tools/port_probe.py tt-svd                # ChatGLM3-6B's TT-SVD unfoldings
+    python3 tools/port_probe.py int4 [TREE]           # int4 GEMV, crossover, f32 router
+    python3 tools/port_probe.py int4-variants         # int4 GEMV, design variants
+    python3 tools/port_probe.py int4-plans            # int4 GEMV, grid plans swept
+    python3 tools/port_probe.py int4-host [TREE]      # int4 wrapper's host time a call
 
 ``device-times`` runs the decode attention, wkv and RG-LRU phases of
 ``chip_smoke.py`` from TREE (default: this checkout; another checkout, e.g.
@@ -34,7 +38,20 @@ factorization of every unfolding TT-SVD meets in ChatGLM3-6B's three TT
 specs, by each route that retains the same subspace (``torch.linalg.svd``
 as ``core.ttd`` calls it; on a wide unfolding, the SVD through the QR of its
 transpose; the Gram route; cuSOLVER's drivers), and ``tt_svd`` of each whole
-spec.  Every line carries the card's name and power limit.
+spec.  ``int4`` times, from TREE's wrapper, the int4 kernels' device time a
+call at every served decode shape (B 1, 8 and 16; weights rotated past the
+L2 as ``chip_smoke.py`` does), both bf16 routes at B 16-48 (where TREE's
+wrapper can force one: ``GEMV_MAX_B``), and the f32 route at the routers'
+shapes, beside the bytes bound and the library call (``torch.matmul`` on
+the dequantized weights).  ``int4-variants`` builds ``csrc/int4_matmul.cu``
+with one part of the GEMV changed or switched off (outputs wrong by design
+where a part is off) and times each at the serve shapes, to show what
+bounds it.  ``int4-plans`` times the GEMV as committed under other grids
+(K slices x warps a CTA) than ``gemv_plan`` picks, and the f32 route under
+other tiles and slices than ``f32_plan`` picks, at the serve shapes.
+``int4-host`` times the host side of TREE's int4 wrapper: the mean wall
+time a call over 400 calls issued without synchronizing, at decode shapes.
+Every line carries the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -438,6 +455,256 @@ def tt_svd_routes() -> None:
                   f"{t * 1e3:.1f} ms", flush=True)
 
 
+# (K, M) of the int4 linears the served paths run at decode: llama2-7b /
+# rwkv6-7b, chatglm3-6b, recurrentgemma-2b, mixtral-8x22b, kimi-k2-1t-a32b
+INT4_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 256), (4096, 13696),
+               (13696, 4096), (2560, 2560), (2560, 256), (6144, 6144), (6144, 1024),
+               (7168, 7168), (7168, 896)]
+
+
+def int4(tree: Path) -> None:
+    import math
+
+    import torch
+    sys.path[:0] = [str(tree / "src")]
+    from repro_torch.core.quant import dequantize_int4, quantize_int4
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import int4_matmul as k
+    _build.lib()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tag = f"{tree.name} int4"
+
+    def weights(kk, m, rotate=True):
+        copies = max(1, math.ceil(128e6 / (m * kk // 2))) if rotate else 1
+        return [quantize_int4(torch.randn(m, kk, generator=g, device="cuda") / math.sqrt(kk), 128)
+                for _ in range(copies)]
+
+    def bf16_line(kk, m, b, route=None):
+        ws = weights(kk, m)
+        x = torch.randn(b, kk, generator=g, device="cuda").to(torch.bfloat16)
+        epi = dict(residual=torch.randn(b, m, generator=g, device="cuda").to(torch.bfloat16)) \
+            if m < kk else (dict(activation="silu") if m > kk else {})
+        default = getattr(k, "GEMV_MAX_B", None)
+        if route is not None:
+            k.GEMV_MAX_B = 8 * k.GEMV_MAX_NT if route == "gemv" else 0
+        try:
+            dev = device_ms(lambda i: k.int4_matmul(x, ws[i % len(ws)]["qweight"],
+                                                    ws[i % len(ws)]["scales"], 128, **epi))
+        finally:
+            if default is not None:
+                k.GEMV_MAX_B = default
+        dq = [dequantize_int4(w).T.contiguous() for w in ws[:max(1, math.ceil(len(ws) / 4))]]
+        lib = device_ms(lambda i: torch.matmul(x, dq[i % len(dq)]))
+        nbytes = 2 * b * kk + m * kk // 2 + 2 * m * (kk // 128) + 2 * b * m \
+            + (2 * b * m if m < kk else 0)
+        bound = nbytes / 3.35e12 * 1e3
+        print(f"[{tag}] {card()}: bf16 {kk}->{m} B={b}{f' route {route}' if route else ''}: "
+              f"device ms a call {dev:.4f}, bytes bound {bound:.4f} ({bound / dev:.0%}), "
+              f"library {lib:.4f}", flush=True)
+
+    for kk, m in INT4_SHAPES:
+        for b in (1, 8, 16):
+            bf16_line(kk, m, b)
+    for kk, m in ((4096, 4096), (4096, 11008)):
+        for b in (16, 17, 24, 32, 48):
+            for route in (("gemv", "gemm") if hasattr(k, "GEMV_MAX_B") else (None,)):
+                bf16_line(kk, m, b, route)
+    for kk, m in ((6144, 8), (7168, 384)):
+        q = weights(kk, m, rotate=False)[0]
+        wt = dequantize_int4(q, torch.float32).T.contiguous()
+        for b in (8, 2048):
+            x = torch.randn(b, kk, generator=g, device="cuda")
+            dev = device_ms(lambda i: k.int4_matmul(x, q["qweight"], q["scales"], 128))
+            lib = device_ms(lambda i: torch.matmul(x, wt))
+            nbytes = 4 * b * kk + m * kk // 2 + 2 * m * (kk // 128) + 4 * b * m
+            ops = 2.0 * b * kk * m
+            f32_bound = max(nbytes / 3.35e12, ops / 67e12) * 1e3
+            tf32_bound = max(nbytes / 3.35e12, 2 * ops / 495e12) * 1e3
+            print(f"[{tag}] {card()}: f32 router {kk}->{m} B={b}: device ms a call {dev:.4f}, "
+                  f"f32 FMA bound {f32_bound:.4f}, two-TF32-pass bound {tf32_bound:.4f}, "
+                  f"library {lib:.4f}", flush=True)
+
+
+# parts of csrc/int4_matmul.cu's GEMV, each changed or switched off by a text patch
+INT4_VARIANTS = {
+    "as committed": [],
+    "no mma (the stream, x staging and reduce only)": [
+        ("      mma_bf16(part[0][n], ae, be);\n      mma_bf16(part[1][n], ao, bo);", "")],
+    "no weight loads (compute on made-up words; wrong sums)": [
+        ("        buf[d][0] = ld_stream(w0 + 64 * d + 16 * tig);\n"
+         "        buf[d][1] = ld_stream(w1 + 64 * d + 16 * tig);",
+         "        buf[d][0] = make_uint4(lane, d, 7 * lane, 3);\n"
+         "        buf[d][1] = make_uint4(d, lane, 5, 9 * lane);"),
+        ("          buf[d][0] = ld_stream(w0 + 64 * (b + GV_DEPTH) + 16 * tig);\n"
+         "          buf[d][1] = ld_stream(w1 + 64 * (b + GV_DEPTH) + 16 * tig);",
+         "          buf[d][0].x += b;\n          buf[d][1].y ^= b;")],
+    "half the mma (the odd steps' products dropped; wrong sums)": [
+        ("      mma_bf16(part[0][n], ae, be);\n      mma_bf16(part[1][n], ao, bo);",
+         "      mma_bf16(part[0][n], ae, be);\n      if (bo[0] == 0x12345u) mma_bf16(part[1][n], ao, bo);")],
+    "no nibble conversion (raw words as fragments; wrong sums)": [
+        ("    const uint32_t ae[4] = {halves_to_bf16(u0), halves_to_bf16(u1), halves_to_bf16(u0 >> 4),\n"
+         "                            halves_to_bf16(u1 >> 4)};\n"
+         "    const uint32_t ao[4] = {halves_to_bf16(u0 >> 8), halves_to_bf16(u1 >> 8),\n"
+         "                            halves_to_bf16(u0 >> 12), halves_to_bf16(u1 >> 12)};",
+         "    const uint32_t ae[4] = {u0, u1, u0 >> 4, u1 >> 4};\n"
+         "    const uint32_t ao[4] = {u0 >> 8, u1 >> 8, u0 >> 12, u1 >> 12};")],
+    "k16 steps of contiguous k (the path for groups under 128)": [
+        ("  if (WHOLE) {\n    // block b:", "  if (false) {\n    // block b:")],
+    "each slice stores its partials itself (no cluster reduce; wrong sums)": [
+        ("      red.push(acc[n][e], 8 * n + 2 * tig + (e & 1), warp * 16 + gid + (e >= 2 ? 8 : 0));\n"
+         "  red.finish();",
+         "      if (8 * n + 2 * tig + (e & 1) < a.B && rb + gid + (e >= 2 ? 8 : 0) < a.M)\n"
+         "        a.out[(long)(8 * n + 2 * tig + (e & 1)) * a.M + rb + gid + (e >= 2 ? 8 : 0)] =\n"
+         "            __float2bfloat16(acc[n][e]);")],
+    "the reduce without its remote stores (wrong sums)": [
+        ("    *dst = v;", "    if (v == 12345.f) *dst = v;")],
+    "x left in its own order (no permute pass; wrong sums)": [
+        ("    *q = p;\n  }\n  __syncthreads();",
+         "    if (p.x == 0x12345u) *q = p;\n  }\n  __syncthreads();")],
+    "4 blocks in flight a warp": [("constexpr int GV_DEPTH = 2;", "constexpr int GV_DEPTH = 4;")],
+    "8 blocks in flight a warp": [("constexpr int GV_DEPTH = 2;", "constexpr int GV_DEPTH = 8;")],
+}
+
+
+def int4_variants() -> None:
+    import math
+
+    import torch
+    libs = build_variants("int4_matmul.cu", INT4_VARIANTS)
+    from repro_torch.core.quant import quantize_int4
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import int4_matmul as k
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for kk, m in ((4096, 4096), (4096, 11008), (11008, 4096), (2560, 256)):
+        copies = max(1, math.ceil(128e6 / (m * kk // 2)))
+        ws = [quantize_int4(torch.randn(m, kk, generator=g, device="cuda") / math.sqrt(kk), 128)
+              for _ in range(copies)]
+        b = 8
+        x = torch.randn(b, kk, generator=g, device="cuda").to(torch.bfloat16)
+        out = torch.empty(b, m, device="cuda", dtype=torch.bfloat16)
+        plan = k.gemv_plan(b, kk, m, 128)
+        for name, lib in libs.items():
+            fn = lib.rt_int4_matmul
+            fn.argtypes = _build.SIGNATURES["rt_int4_matmul"]
+
+            def call(i, fn=fn):
+                w = ws[i % copies]
+                _build.check(fn(x.data_ptr(), w["qweight"].data_ptr(), w["scales"].data_ptr(),
+                                None, None, None, out.data_ptr(), b, kk, m, 128, 0, plan.warps,
+                                plan.split.splits, plan.split.per_k, plan.split.ngs,
+                                _build.stream(x)), "int4_matmul")
+
+            print(f"[int4-variants] {card()}: {kk}->{m} B={b} ({plan.ctas} CTAs of "
+                  f"{plan.warps} warps, {plan.split.splits} slices of {plan.split.per_k}), "
+                  f"{name}: device ms a call {device_ms(call):.4f}", flush=True)
+
+
+def int4_plans() -> None:
+    import math
+
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.quant import quantize_int4
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import int4_matmul as k
+    lib = _build.lib()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for kk, m, b in ((4096, 4096, 8), (4096, 11008, 8), (11008, 4096, 8), (2560, 2560, 8),
+                     (2560, 256, 8), (4096, 4096, 1), (4096, 4096, 16), (11008, 4096, 16)):
+        copies = max(1, math.ceil(128e6 / (m * kk // 2)))
+        ws = [quantize_int4(torch.randn(m, kk, generator=g, device="cuda") / math.sqrt(kk), 128)
+              for _ in range(copies)]
+        x = torch.randn(b, kk, generator=g, device="cuda").to(torch.bfloat16)
+        out = torch.empty(b, m, device="cuda", dtype=torch.bfloat16)
+        pick = k.gemv_plan(b, kk, m, 128)
+        units = kk // 128
+        cap = k.GEMV_X_BYTES // (2 * 8 * -(-b // 8)) // 128
+        pers = sorted({max(1, min(cap, -(-units // s))) for s in (1, 2, 3, 4, 6, 8, 11, 16)
+                       if -(-units // max(1, min(cap, -(-units // s)))) <= k.MAX_SPLITS})
+        results = []
+        for per in pers:
+            sp = k._split(kk, 128, 128, per)
+            for warps in (8, 4, 2, 1):
+                rt = -(-(-(-m // 16)) // warps)
+
+                def call(i, warps=warps, sp=sp):
+                    w = ws[i % copies]
+                    _build.check(lib.rt_int4_matmul(
+                        x.data_ptr(), w["qweight"].data_ptr(), w["scales"].data_ptr(), None,
+                        None, None, out.data_ptr(), b, kk, m, 128, 0, warps, sp.splits, sp.per_k,
+                        sp.ngs, _build.stream(x)), "int4_matmul")
+
+                results.append((device_ms(call), warps, sp.splits, sp.per_k, rt * sp.splits))
+        for ms, warps, splits, per_k, ctas in sorted(results):
+            mark = " <- gemv_plan" if (warps, splits, per_k) == (pick.warps, pick.split.splits,
+                                                                 pick.split.per_k) else ""
+            print(f"[int4-plans] {card()}: {kk}->{m} B={b}: {splits} slices of {per_k} x {warps} "
+                  f"warps ({ctas} CTAs): device ms a call {ms:.4f}{mark}", flush=True)
+    for kk, m, b in ((7168, 384, 2048), (6144, 8, 2048), (7168, 384, 8), (6144, 8, 8)):
+        q = quantize_int4(torch.randn(m, kk, generator=g, device="cuda") / math.sqrt(kk), 128)
+        x = torch.randn(b, kk, generator=g, device="cuda")
+        out = torch.empty(b, m, device="cuda")
+        pick = k.f32_plan(b, kk, m, 128)
+        tiles = [(pick.fm, pick.fn, pick.wm)] + ([(2, 8, 4), (1, 2, 1), (1, 2, 2)]
+                                                 if b > 16 else [(1, 1, 4)])
+        results = []
+        for fm, fn, wm in dict.fromkeys(tiles):
+            tm, tn = 16 * fm * wm, 8 * fn * (8 // wm)
+            for splits in (1, 2, 3, 4, 6, 8, 12, 16):
+                per = -(-(kk // 128) // splits)
+                sp = k._split(kk, 128, 128, per)
+                if sp.splits > k.MAX_SPLITS or tm * sp.ngs * 2 > k.F32_SC_BYTES:
+                    continue
+
+                def call(i, fm=fm, fn=fn, wm=wm, sp=sp):
+                    _build.check(lib.rt_int4_matmul_f32(
+                        x.data_ptr(), q["qweight"].data_ptr(), q["scales"].data_ptr(), None,
+                        None, None, out.data_ptr(), b, kk, m, 128, 0, fm, fn, wm, sp.splits,
+                        sp.per_k, sp.ngs, _build.stream(x)), "int4_matmul (f32)")
+
+                ctas = -(-m // tm) * -(-b // tn) * sp.splits
+                results.append((device_ms(call), fm, fn, wm, sp.splits, sp.per_k, ctas))
+        for ms, fm, fn, wm, splits, per_k, ctas in sorted(results):
+            mark = " <- f32_plan" if (fm, fn, wm, splits) == (pick.fm, pick.fn, pick.wm,
+                                                              pick.split.splits) else ""
+            print(f"[int4-plans] {card()}: f32 {kk}->{m} B={b}: tile {16 * fm * wm} rows x "
+                  f"{8 * fn * (8 // wm)} tokens (fm {fm}, fn {fn}, wm {wm}), {splits} slices of "
+                  f"{per_k} ({ctas} CTAs): device ms a call {ms:.4f}{mark}", flush=True)
+
+
+def int4_host(tree: Path) -> None:
+    import math
+    import time
+
+    import torch
+    sys.path[:0] = [str(tree / "src")]
+    from repro_torch.core.quant import quantize_int4
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import int4_matmul as k
+    _build.lib()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for kk, m, b, dt in ((4096, 4096, 8, torch.bfloat16), (4096, 256, 8, torch.bfloat16),
+                         (6144, 8, 8, torch.float32), (7168, 384, 8, torch.float32),
+                         (4096, 4096, 64, torch.bfloat16)):
+        q = quantize_int4(torch.randn(m, kk, generator=g, device="cuda") / math.sqrt(kk), 128)
+        x = torch.randn(b, kk, generator=g, device="cuda").to(dt)
+        for _ in range(20):
+            k.int4_matmul(x, q["qweight"], q["scales"], 128)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(400):
+            k.int4_matmul(x, q["qweight"], q["scales"], 128)
+        host = (time.perf_counter() - t0) / 400 * 1e6
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(400):
+            torch.add(x, x)
+        add = (time.perf_counter() - t1) / 400 * 1e6
+        torch.cuda.synchronize()
+        print(f"[{tree.name} int4-host] {card()}: {kk}->{m} B={b} {str(dt)[6:]}: host us a call "
+              f"{host:.1f} (torch.add on x: {add:.1f})", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -457,6 +724,14 @@ def main() -> int:
         rglru_variants()
     elif what == "tt-svd":
         tt_svd_routes()
+    elif what == "int4":
+        int4(Path(args[0]).resolve() if args else ROOT)
+    elif what == "int4-variants":
+        int4_variants()
+    elif what == "int4-plans":
+        int4_plans()
+    elif what == "int4-host":
+        int4_host(Path(args[0]).resolve() if args else ROOT)
     else:
         print(__doc__, file=sys.stderr)
         return 2
