@@ -18,7 +18,9 @@ then:
    at B 16-48, where the wrapper's crossover sits; the MoE phases run the
    grouped tt_linear at
    mixtral-8x22b's and kimi-k2-1t-a32b's expert specs (seeded routings, one
-   with every row on one expert, one with most experts empty), the routers'
+   with every row on one expert, one with most experts empty), each printing
+   its route (decode tiles or wgmma) and its two launches' device times
+   (operator pass, contraction), the routers'
    int4 linears on f32 activations, and one full-width kimi-k2 MoE layer;
    the attention phases at head_dim 112 (kimi-k2's H64/Hkv8) run paged
    decode and prefill over bf16 and int8 pools and ring decode and prefill
@@ -51,7 +53,8 @@ then:
       top kernels, each hand kernel's time, the attention kernels' time, the
       count of device kernels and of device-to-host copies a call (none on
       the MoE paths') and the scans' and the int4 kernels' device time a
-      call and a launch;
+      call and a launch (the MoE paths': the grouped tt_linear's operator
+      pass and contraction, named apart);
    d. on llama2-7b only, the serving front end: ``[frontend]`` serves 12
       requests through ``Engine.run`` and the ``AsyncEngine`` without and
       with dispatch-ahead (bitwise the same tokens, every ahead dispatch
@@ -802,6 +805,25 @@ class Smoke:
         return (self.time_ms(lambda i: torch.bmm(buf, wt)),
                 note + f"torch.bmm over a capacity-padded ({e}, {cap}, N) buffer")
 
+    def grouped_launch_ms(self, run, iters: int = 10):
+        """Device ms a call of the grouped call's two launches, the operator
+        pass and the contraction, from ``torch.profiler``."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        run(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                run(i)
+            torch.cuda.synchronize()
+        ops = con = 0.0
+        for ev in kernel_events(prof):
+            if "tt_ops_mma" in ev.key or "tt_operators" in ev.key:
+                ops += ev.self_device_time_total
+            elif "tt_wgmma" in ev.key or "tt_fused" in ev.key:
+                con += ev.self_device_time_total
+        return ops / iters / 1e3, con / iters / 1e3
+
     def tt_grouped_phases(self, arch, role, spec, e, k, cases):
         """The grouped kernel at an arch's expert spec (bf16 cores, E experts,
         top-k) for each (T tokens, routing) of ``cases``: T·K rows sorted by
@@ -838,14 +860,20 @@ class Smoke:
             lib_ms, lib_what = self.grouped_library(x, offsets, w)
             counts = (offsets[1:] - offsets[:-1]).tolist()
             active = sum(c > 0 for c in counts)
-            tb = 1
-            while tb < 8 and 2 * tb * e <= r:
-                tb *= 2
-            tiles, slots = kt.grouped_tiles(offsets.tolist(), tb)
+            gp = kt.grouped_plan(spec, r, e)
+            tiles, slots = kt.grouped_tiles(offsets.tolist(), gp.tb)
+            ops_ms, con_ms = self.grouped_launch_ms(run)
             label = (f"{arch} {role} E={e} top-{k} T={t} ({r} rows, {how}: {active} experts "
                      f"with rows, at most {max(counts)})")
-            print(f"[tt_linear_grouped] {label}: at most {tb} rows a CTA tile, {len(tiles)} "
-                  f"tiles of {slots} slots", flush=True)
+            shape = (f"{gp.tb} rows a CTA tile ({gp.iw} a warpgroup), {gp.bms} MR columns a "
+                     f"CTA, {gp.stages} stages, {gp.smem} bytes of shared memory"
+                     if gp.route == "wgmma" else f"at most {gp.tb} rows a CTA tile")
+            print(f"[tt_linear_grouped] {label}: route {gp.route}, {shape}, {len(tiles)} tiles "
+                  f"of {slots} slots; operator pass on the "
+                  f"{'tensor cores' if gp.ops_mma else 'CUDA cores'} over "
+                  f"{len(kt.active_experts(offsets.tolist(), r))} experts; device ms a call "
+                  f"(torch.profiler): operator pass {ops_ms:.4f}, contraction {con_ms:.4f}",
+                  flush=True)
             self.record("tt_linear_grouped", label, got, want, 3e-2,
                         f"bf16: the plain version rounds each of the {spec.d} stages to bf16, "
                         f"the kernel its operators and its one intermediate (plan h={plan.h} "
@@ -1587,6 +1615,16 @@ class Smoke:
                   f"{clock}", flush=True)
             if cfg.family == "moe" and dtoh:
                 self.failures.append(f"profile {path} {what}: {dtoh} device-to-host copies")
+            if cfg.family == "moe":  # the grouped tt_linear's two launches, named apart
+                parts = (("operator pass", [e for e in hand if "tt_ops_mma" in e.key]),
+                         ("contraction", [e for e in hand if "tt_wgmma" in e.key or (
+                             "tt_fused<" in e.key and ", true>(" in e.key)]))
+                print(f"[profile {path}] {what}: grouped tt_linear "
+                      + "; ".join(f"{part} {sum(e.self_device_time_total for e in evs) / n / 1e3:.3f}"
+                                  f" ms per call ({sum(e.count for e in evs) / n:.0f} launches: "
+                                  + ", ".join(e.key.split("::", 1)[-1].split(">(")[0][:40] + ">"
+                                              for e in evs) + ")" for part, evs in parts),
+                      flush=True)
             for name, tag in (("wkv_scan", "wkv_"), ("rglru_scan", "rglru_"),
                               ("int4_matmul", "int4_")):
                 scans = [e for e in hand if tag in e.key]

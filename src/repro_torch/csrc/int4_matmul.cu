@@ -69,10 +69,9 @@
 // products from two TF32 tensor-core passes (x split into tf32 hi and lo),
 // split-K reduced in the same launch; see the section at the end.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <cooperative_groups.h>
-
-#include <cuda.h>  // CUtensorMap (the encoder is fetched through the runtime)
 
 namespace {
 
@@ -132,35 +131,12 @@ __device__ __forceinline__ void row_fragments(const uint8_t* seg, uint32_t sel,
   f[2][0] = c[0]; f[2][1] = c[1]; f[3][0] = c[2]; f[3][1] = c[3];
 }
 
-// ---- TMA, cp.async, wgmma (barriers: common.cuh) ------------------------------
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
+// ---- cp.async, wgmma operand fences (TMA, wgmma, barriers: hopper.cuh, common.cuh) ----
 // 4 bytes global -> shared; bytes past `src_bytes` (0, 2 or 4) are zero-filled
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes)
                : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Pins the accumulator registers at this point of the program, so that the
 // compiler moves no access to them across a wgmma fence or wait.  Used only
@@ -179,13 +155,6 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
   for (int b = 0; b < N; ++b)
     asm volatile("" : "+r"(a[b][0]), "+r"(a[b][1]), "+r"(a[b][2]), "+r"(a[b][3])::"memory");
 }
-// shared-memory descriptor of a K-major tile with 128-byte rows in the
-// 128-byte swizzle (8-row groups 1024 bytes apart), as TMA lays it out
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
-         ((uint64_t)1 << 62);
-}
-
 // D (64 weight rows x 128 tokens, f32) += A (64 x 16, bf16 registers) * B (16 x 128,
 // the activation tile's descriptor); scale_d = 0 overwrites D.
 __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
@@ -849,42 +818,6 @@ __global__ void int4_unpack_kernel(const uint8_t* __restrict__ packed,
     o[8 * b + tig] = f[b][0];      // k = 16b + 2 tig
     o[8 * b + 4 + tig] = f[b][1];  // k = 16b + 8 + 2 tig
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
-  return fn;
-}
-
-// A 2-D row-major tensor map: `cols` x `rows` elements of `bytes` each, a
-// box of `box_cols` x `box_rows`; reads past the tensor are zero-filled.
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int bytes, const void* base,
-                long cols, long rows, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
-  EncodeTiledFn enc = encode_tiled();
-  if (!enc) return false;
-  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t stride[1] = {(cuuint64_t)(cols * bytes)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t one[2] = {1, 1};
-  return enc(map, type, 2, const_cast<void*>(base), dim, stride, box, one,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---- f32 activations (the MoE router) --------------------------------------

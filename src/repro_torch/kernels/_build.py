@@ -32,7 +32,7 @@ L = ctypes.c_long
 SIGNATURES = {
     "rt_tt_linear": [P, I, P, P, P, P, P, P, P, P, I, I, P, P, P, I, P],
     "rt_tt_linear_fused": [P] * 7 + [I, I, P, P, P, I, I, I, I, P],
-    "rt_tt_linear_fused_grouped": [P, P, P, I, P, P, P, I, I, P, P, P, I, I, I, I, P],
+    "rt_tt_linear_fused_grouped": [P, P, P, I, P, P, P, I, I, P, P, P] + [I] * 7 + [P],
     "rt_int4_matmul": [P] * 7 + [I] * 9 + [P],
     "rt_int4_matmul_f32": [P] * 7 + [I] * 11 + [P],
     "rt_int4_unpack": [P, P, I, P],

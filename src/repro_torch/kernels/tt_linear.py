@@ -16,12 +16,19 @@ spec past those limits take the staged route: one launch per core, f32
 intermediates in a per-call scratch buffer (``fused_route``).
 
 ``tt_linear_grouped`` is the MoE experts' entry: rows sorted by expert, the
-experts' cores stacked on a leading E axis, one operator launch over every
-expert with rows and one contraction over a row-tile schedule built on the
+experts' cores stacked on a leading E axis, one operator launch over the
+experts with rows and one contraction over a row-tile schedule built on the
 device (``grouped_tiles`` is its plain version), no host read.  It replaces
 ``tt_linear_pallas`` batched by ``jax.vmap`` over the experts
 (``repro/models/moe.py::_expert_ffn``).  It takes the fused route's specs
-only; there is no grouped staged kernel.
+only; there is no grouped staged kernel.  Where each half has one or two
+cores, the operator pass is a GEMM of depth r on the tensor cores, group by
+group (``op_groups`` and ``operators_by_groups`` are its plain version), over
+a grid of min(E, R) expert slots, each finding its expert with rows on the
+device (``active_experts``).  The contraction takes the decode tiles
+(mma.sync, a few rows a CTA) or, from ``GROUPED_WGMMA_MIN_ROWS`` rows an
+expert on, the wgmma contraction over tiles of 8 or 4 rows with TMA-fed
+operator tiles (``grouped_plan`` says which, and its shape).
 """
 from __future__ import annotations
 
@@ -231,6 +238,228 @@ def grouped_tiles(offsets, tb: int):
     return tiles, -(-off[-1] // tb) + len(off) - 1
 
 
+# The grouped operator pass on the tensor cores (csrc/tt_linear.cu plan_half):
+# a group's operator elements aimed at, and the limits past which a
+# spec takes tt_operators (CUDA cores).
+OPS_S_TARGET, OPS_S_MAX, OPS_ROWS_MAX, OPS_COLS_MAX = 16384, 16384, 256, 1024
+
+
+@dataclass(frozen=True)
+class OpHalf:
+    """One half of the cores as the operator pass's GEMM of depth ``k``: A
+    (core ``a``: rows (i, j) of modes nA x mA, or rank-major rows on the
+    right) times B (core ``b``: columns (i', j') of nB x mB, times the rank
+    rr on the left); core -1 is the identity.  A CTA takes one of ``groups``
+    groups: ``rows`` A rows by ``cols`` B columns (the left half's chunks of
+    ``mac`` of m_a and ``mc`` of m_b, the right half's of ``rc`` ranks)."""
+
+    left: bool
+    a: int
+    b: int
+    n_a: int
+    m_a: int
+    n_b: int
+    m_b: int
+    k: int
+    rr: int
+    mac: int     # the left half's chunk of m_a a group
+    mc: int      # the left half's chunk of m_b a group
+    rc: int      # the right half's chunk of ranks a group
+    rows: int
+    cols: int
+    groups: int
+
+    @property
+    def n(self) -> int:
+        return self.n_a * self.n_b
+
+    @property
+    def s_elems(self) -> int:
+        """A group's operator elements (what its plan sizes it by)."""
+        return (self.rr * self.mac * self.mc if self.left else self.rc * self.m_a * self.m_b) \
+            * _pad16(self.n)
+
+
+def _op_half(spec: TTSpec, h: int, left: bool) -> OpHalf | None:
+    n, m, r, d = spec.in_modes, spec.out_modes, spec.ranks, spec.d
+    nc = h if left else d - h
+    if not 1 <= nc <= 2:
+        return None
+    ka = 0 if left else (d - 2 if nc == 2 else -1)
+    kb = (1 if nc == 2 else -1) if left else d - 1
+    n_a, m_a = (n[ka], m[ka]) if ka >= 0 else (1, 1)
+    n_b, m_b = (n[kb], m[kb]) if kb >= 0 else (1, 1)
+    k = r[1] if left else (r[d - 1] if nc == 2 else r[h])
+    rr, n16 = r[h], _pad16(n_a * n_b)
+    if left:  # the most j1 a group (each reads B once), then the most j2
+        mac = next((c for c in range(m_a, 0, -1) if m_a % c == 0 and n_a * c <= OPS_ROWS_MAX
+                    and rr * c * n16 <= OPS_S_TARGET), 1)
+        mc = next((c for c in range(m_b, 0, -1) if m_b % c == 0
+                   and rr * mac * c * n16 <= OPS_S_TARGET and n_b * c * rr <= OPS_COLS_MAX), 1)
+        half = OpHalf(True, ka, kb, n_a, m_a, n_b, m_b, k, rr, mac, mc, 1, n_a * mac,
+                      n_b * mc * rr, (m_a // mac) * (m_b // mc))
+    else:
+        rc = next((c for c in range(rr, 0, -1) if rr % c == 0 and c * n_a * m_a <= OPS_ROWS_MAX
+                   and c * m_a * m_b * n16 <= OPS_S_TARGET), 1)
+        half = OpHalf(False, ka, kb, n_a, m_a, n_b, m_b, k, rr, m_a, m_b, rc, rc * n_a * m_a,
+                      n_b * m_b, rr // rc)
+    if half.rows > OPS_ROWS_MAX or half.cols > OPS_COLS_MAX or half.s_elems > OPS_S_MAX:
+        return None
+    return half
+
+
+@functools.lru_cache(maxsize=None)
+def op_groups(spec: TTSpec, h: int) -> tuple[OpHalf, OpHalf] | None:
+    """The tensor-core operator pass's plan of split ``h``, or None where a
+    half has more than two cores (or none) or passes the limits."""
+    halves = (_op_half(spec, h, True), _op_half(spec, h, False))
+    return None if None in halves else halves
+
+
+def operators_by_groups(cores, spec: TTSpec, h: int):
+    """The operator pass as ``tt_ops_mma`` computes it, group by group: each
+    group's GEMM of depth r in f32 from the cores (C's columns with the
+    input index i' fastest), each element put where the kernel stores it in
+    OPL (r_h, ML, NL16) and OPR (r_h, MR, NR16), zeros past NL and NR (the
+    kernel then rounds to bf16)."""
+    halves = op_groups(spec, h)
+    if halves is None:
+        raise ValueError(f"spec {spec.in_modes}->{spec.out_modes} split {h}: no GEMM plan")
+    out = []
+    for p in halves:
+        eye = torch.eye(p.rr, dtype=torch.float32)
+        a_mat = cores[p.a].float().reshape(-1, p.k) if p.a >= 0 else eye
+        b_mat = cores[p.b].float().reshape(p.k, -1) if p.b >= 0 else eye
+        n16, mt = _pad16(p.n), p.m_a * p.m_b
+        op = torch.zeros(p.rr * mt * n16)
+        rows, cols = torch.arange(p.rows), torch.arange(p.cols)
+        ib = cols % p.n_b
+        for g in range(p.groups):
+            if p.left:  # a = (i1, j1 of the chunk), c = (j2 of the chunk, rho, i2)
+                ja0, jb0 = divmod(g, p.m_b // p.mc)
+                ja0, jb0 = ja0 * p.mac, jb0 * p.mc
+                jl, rho = cols // (p.n_b * p.rr), (cols // p.n_b) % p.rr
+                a_rows = (rows // p.mac) * p.m_a + ja0 + rows % p.mac
+                b_cols = (ib * p.m_b + jb0 + jl) * p.rr + rho
+                row_at = (ja0 + rows % p.mac) * p.m_b * n16 + (rows // p.mac) * p.n_b
+                col_at = rho * mt * n16 + (jb0 + jl) * n16 + ib
+            else:  # a = (rho of the chunk, i, j), c = (j', i')
+                q = rows % (p.n_a * p.m_a)
+                a_rows, b_cols = g * p.rows + rows, ib * p.m_b + cols // p.n_b
+                row_at = ((g * p.rc + rows // (p.n_a * p.m_a)) * mt + (q % p.m_a) * p.m_b) * n16 \
+                    + (q // p.m_a) * p.n_b
+                col_at = (cols // p.n_b) * n16 + ib
+            c = a_mat[a_rows] @ b_mat[:, b_cols]
+            op[(row_at[:, None] + col_at[None, :]).reshape(-1)] = c.reshape(-1)
+        out.append(op.reshape(p.rr, mt, n16))
+    return tuple(out)
+
+
+def active_experts(offsets, rows: int) -> list[int]:
+    """The experts the operator pass's min(E, rows) slots find, in slot
+    order, as each CTA finds its own (``csrc/tt_linear.cu`` nth_active): 512
+    experts a pass, two a thread, an inclusive scan of the threads' counts
+    within each warp of 32 plus the warps' sums before it gives each expert
+    with rows its slot; offsets clamped to [0, rows]."""
+    off = [int(v) for v in offsets]
+    n_exp, slots, base = len(off) - 1, min(len(off) - 1, rows), 0
+    found = {}
+
+    def has_rows(e):
+        if e >= n_exp:
+            return 0
+        lo = min(max(off[e], 0), rows)
+        return int(min(max(off[e + 1], lo), rows) > lo)
+
+    for e0 in range(0, n_exp, 512):
+        act = [(has_rows(e0 + 2 * t), has_rows(e0 + 2 * t + 1)) for t in range(256)]
+        incl = []  # inclusive scans within each warp
+        for t in range(256):
+            incl.append(sum(act[t]) + (incl[-1] if t % 32 else 0))
+        wsum = [incl[32 * w + 31] for w in range(8)]
+        for t in range(256):
+            first = base + incl[t] - sum(act[t]) + sum(wsum[:t // 32])
+            for j in range(2):
+                if act[t][j]:
+                    found[first + (act[t][0] if j else 0)] = e0 + 2 * t + j
+        base += sum(wsum)
+        if base >= slots:
+            break
+    return [found[y] for y in range(slots) if y in found]
+
+
+# The grouped contraction takes the wgmma route from this many rows an
+# expert (the mean over the call's experts) on; below it the decode tiles.
+GROUPED_WGMMA_MIN_ROWS = 4
+SMEM_MAX = 227 * 1024  # csrc/tt_linear.cu SMEM_MAX
+
+
+@dataclass(frozen=True)
+class GroupedPlan:
+    """The grouped call's launches: whether the operator pass runs on the
+    tensor cores (``ops_mma``), the contraction's route ("decode tiles" or
+    "wgmma"), its rows a CTA tile (decode tiles: at most) and schedule slots;
+    for wgmma, rows a warpgroup (``iw``), MR columns a CTA (``bms``), ring
+    stages, shared memory and grid."""
+
+    ops_mma: bool
+    route: str
+    tb: int
+    slots: int
+    iw: int = 0
+    bms: int = 0
+    stages: int = 0
+    smem: int = 0
+    grid: tuple = ()
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_shape(spec: TTSpec):
+    """(iw, bms, stages, smem) of the wgmma contraction (left half first at
+    the plan's split; ``csrc/tt_linear.cu`` wgmma_layout), or None."""
+    p = _split(spec, contraction_plan(spec).h, True)
+    ns, kp = _pad16(p.nr), -(-_pad16(p.nl) // 64)
+    if ns not in (32, 64) or p.nr % 8:  # a row's X loads 8 of NR at a time
+        return None
+    bms = 32 if p.mr <= 32 else 64
+    for iw in (4, 2):
+        x_bytes = kp * ns * 128
+        epi = 64 * (bms + 4) * 4
+        for stages in (4, 3, 2):
+            end = 2 * iw * x_bytes + stages * (kp * 8192 + -(-ns // 64) * bms * 128)
+            if iw * x_bytes < epi:
+                end += 2 * epi
+            smem = 1024 + end + 2 * stages * 8
+            if smem <= SMEM_MAX:
+                return iw, bms, stages, smem
+    return None
+
+
+def grouped_plan(spec: TTSpec, rows: int, experts: int, x_aligned: bool = True) -> GroupedPlan:
+    """The grouped call's plan for ``rows`` rows over ``experts`` experts
+    (the wgmma route loads x 16 bytes at a time: ``x_aligned``)."""
+    return _grouped_plan(spec, rows, experts, x_aligned, GROUPED_WGMMA_MIN_ROWS)
+
+
+@functools.lru_cache(maxsize=1024)  # a decode tick asks the same few plans ~180 times
+def _grouped_plan(spec: TTSpec, rows: int, experts: int, x_aligned: bool,
+                  min_rows: int) -> GroupedPlan:
+    plan = contraction_plan(spec)
+    ops = op_groups(spec, plan.h) is not None
+    shape = _wgmma_shape(spec) if ops else None
+    if shape is not None and x_aligned and rows >= min_rows * experts:
+        iw, bms, stages, smem = shape
+        tb = 2 * iw
+        slots = -(-rows // tb) + experts
+        lf = _split(spec, plan.h, True)
+        return GroupedPlan(True, "wgmma", tb, slots, iw, bms, stages, smem,
+                           (slots, -(-lf.ml // 64), -(-lf.mr // bms)))
+    tb = 1
+    while tb < 8 and 2 * tb * experts <= rows:
+        tb *= 2
+    return GroupedPlan(ops, "decode tiles", tb, -(-rows // tb) + experts)
+
+
 def _tt_linear_grouped_cuda(x, offsets, cores, spec: TTSpec, activation):
     global launches, grouped_launches
     e = offsets.shape[0] - 1
@@ -259,10 +488,12 @@ def _tt_linear_grouped_cuda(x, offsets, cores, spec: TTSpec, activation):
     ops = torch.empty(e * op_elems, dtype=torch.bfloat16, device=x.device)
     tiles = torch.empty(r + e, 4, dtype=torch.int32, device=x.device)
     core_ptrs = (ctypes.c_void_p * spec.d)(*[c.data_ptr() for c in cores])
+    gp = grouped_plan(spec, r, e, x.data_ptr() % 16 == 0)
     err = _build.lib().rt_tt_linear_fused_grouped(
         x.data_ptr(), core_ptrs, offsets.data_ptr(), e, tiles.data_ptr(), ops.data_ptr(),
         out.data_ptr(), r, spec.d, in_m, out_m, ranks, plan.h, int(plan.left_first),
-        ACT_CODES[activation], int(cores[0].dtype == torch.float32), _build.stream(x))
+        ACT_CODES[activation], int(cores[0].dtype == torch.float32), gp.iw, gp.bms, gp.stages,
+        _build.stream(x))
     _build.check(err, "tt_linear_grouped")
     launches += 2  # the operator pass (with the schedule) and the contraction
     grouped_launches += 2

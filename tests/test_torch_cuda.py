@@ -819,12 +819,16 @@ GROUPED_ROUTINGS = {
 }
 
 
-@pytest.mark.parametrize("modes,e", [
+GROUPED_SPECS = [
     (((12, 8, 8, 8), (16, 16, 8, 8), 16), 8),    # mixtral expert gate/up
     (((16, 16, 8, 8), (12, 8, 8, 8), 16), 8),    # mixtral expert down
     (((14, 8, 8, 8), (8, 8, 8, 4), 16), 384),    # kimi-k2 expert gate/up
     (((8, 4, 2), (3, 5, 7), 4), 5),              # ranks not a multiple of 8: scalar loads
-])
+]
+KIMI_DOWN = (((8, 8, 8, 4), (14, 8, 8, 8), 16), 384)  # kimi-k2 expert down
+
+
+@pytest.mark.parametrize("modes,e", GROUPED_SPECS)
 @pytest.mark.parametrize("routing", list(GROUPED_ROUTINGS))
 @pytest.mark.parametrize("rows", [1, 16, 300])
 @pytest.mark.parametrize("core_dtype", [torch.bfloat16, torch.float32])
@@ -832,7 +836,43 @@ def test_tt_linear_grouped_kernel(dev, modes, e, routing, rows, core_dtype):
     """Rows sorted by expert through the grouped kernel (2 launches, counted
     as grouped) against its plain version, the experts' tt_linear_ref, at the
     bf16 tolerance of test_tt_linear_kernel; experts without rows, all rows
-    on one expert and f32 cores (rounded to bf16 as they load) included."""
+    on one expert, 300 rows over mixtral's 8 experts (past the wgmma
+    threshold) and f32 cores (rounded to bf16 as they load) included; two
+    calls give the same bits."""
+    _grouped_case(dev, modes, e, routing, rows, core_dtype)
+
+
+def test_tt_linear_grouped_kimi_down_and_decode(dev):
+    """kimi-k2's expert down spec at E 384 in every case of
+    test_tt_linear_grouped_kernel, and a decode routing (64 rows over 384
+    experts) at both kimi specs."""
+    for routing in GROUPED_ROUTINGS:
+        for core_dtype in (torch.bfloat16, torch.float32):
+            for rows in (1, 16, 64, 300):
+                _grouped_case(dev, *KIMI_DOWN, routing, rows, core_dtype)
+            _grouped_case(dev, *GROUPED_SPECS[2], routing, 64, core_dtype)
+
+
+def test_tt_linear_grouped_wgmma_route(dev):
+    """Each served expert spec at the wgmma contraction's threshold (4 rows
+    an expert: mixtral 32 rows, kimi 1536) and at 2048 tokens' rows, bf16
+    cores, rows spread and on one expert; x not 16-byte aligned takes the
+    decode tiles."""
+    from repro_torch.core.ttd import TTSpec
+    from repro_torch.kernels import tt_linear as k
+    for modes, e in GROUPED_SPECS[:3] + [KIMI_DOWN]:
+        spec = TTSpec.make(0, 0, modes[2], d=len(modes[0]), in_modes=modes[0],
+                           out_modes=modes[1])
+        for routing in ("spread", "one expert"):
+            for rows in (k.GROUPED_WGMMA_MIN_ROWS * e, 2048 * (2 if e == 8 else 8)):
+                assert k.grouped_plan(spec, rows, e).route == "wgmma"
+                _grouped_case(dev, modes, e, routing, rows, torch.bfloat16)
+            rows = k.GROUPED_WGMMA_MIN_ROWS * e
+            assert k.grouped_plan(spec, rows, e, x_aligned=False).route == "decode tiles"
+            _grouped_case(dev, modes, e, routing, rows, torch.bfloat16, x_offset=1)
+
+
+def _grouped_case(dev, modes, e, routing, rows, core_dtype, x_offset=0):
     from repro_torch.core.ttd import TTSpec
     from repro_torch.kernels import tt_linear as k
     spec = TTSpec.make(0, 0, modes[2], d=len(modes[0]), in_modes=modes[0], out_modes=modes[1])
@@ -842,7 +882,8 @@ def test_tt_linear_grouped_kernel(dev, modes, e, routing, rows, core_dtype):
     eid = torch.sort(GROUPED_ROUTINGS[routing](e, rows, g).long()).values
     offsets = torch.zeros(e + 1, dtype=torch.int32, device=dev)
     offsets[1:] = torch.cumsum(torch.bincount(eid, minlength=e), 0)
-    x = torch.randn(rows, spec.n_in, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(rows * spec.n_in + x_offset, generator=g, device=dev).to(torch.bfloat16)
+    x = x[x_offset:].view(rows, spec.n_in)  # x_offset 1: contiguous, not 16-byte aligned
     n0, g0, p0 = k.launches, k.grouped_launches, k.plain_cuda_calls
     got = k.tt_linear_grouped(x, offsets, cores, spec, activation="silu")
     torch.cuda.synchronize()

@@ -17,6 +17,9 @@ from the repository root on a machine with the card:
     python3 tools/port_probe.py int4-variants         # int4 GEMV, design variants
     python3 tools/port_probe.py int4-plans            # int4 GEMV, grid plans swept
     python3 tools/port_probe.py int4-host [TREE]      # int4 wrapper's host time a call
+    python3 tools/port_probe.py tt-grouped [TREE]     # grouped tt_linear, each launch alone
+    python3 tools/port_probe.py tt-grouped-routes     # grouped tt_linear, both routes by rows
+    python3 tools/port_probe.py tt-grouped-shapes     # grouped wgmma contraction, CTA shapes
 
 ``device-times`` runs the decode attention, wkv and RG-LRU phases of
 ``chip_smoke.py`` from TREE (default: this checkout; another checkout, e.g.
@@ -51,6 +54,17 @@ bounds it.  ``int4-plans`` times the GEMV as committed under other grids
 other tiles and slices than ``f32_plan`` picks, at the serve shapes.
 ``int4-host`` times the host side of TREE's int4 wrapper: the mean wall
 time a call over 400 calls issued without synchronizing, at decode shapes.
+``tt-grouped`` runs TREE's grouped tt_linear (the MoE experts' route) at
+every grouped shape of ``chip_smoke.py``'s MoE phases and at one token, and
+prints the device time of the whole call, of each of its two launches (the
+operator pass and the contraction), of ``torch._grouped_mm`` on the
+reconstructed experts, and the route the contraction took; it also prints
+what ``ptxas -v`` said of TREE's grouped kernels (registers, spills).
+``tt-grouped-routes`` times this checkout's grouped call with each
+contraction route forced (decode tiles, wgmma) at 1-256 rows an expert (up
+to 4096 tokens), to place the threshold between them.  ``tt-grouped-shapes``
+times the wgmma contraction at T 2048 under every (rows a warpgroup, ring
+stages) whose shared memory fits, beside the one ``grouped_plan`` picks.
 Every line carries the card's name and power limit.
 """
 from __future__ import annotations
@@ -525,6 +539,162 @@ def int4(tree: Path) -> None:
                   f"library {lib:.4f}", flush=True)
 
 
+# chip_smoke's grouped MoE shapes (arch, role, [(tokens, routing)]) plus one token
+TT_GROUPED_CASES = (
+    ("mixtral-8x22b", "gate", ((1, "router"), (8, "router"), (2048, "router"),
+                               (2048, "one expert"), (2048, "most empty"))),
+    ("mixtral-8x22b", "down", ((1, "router"), (8, "router"), (2048, "router"))),
+    ("kimi-k2-1t-a32b", "gate", ((1, "router"), (8, "router"), (2048, "router"),
+                                 (2048, "most empty"))),
+    ("kimi-k2-1t-a32b", "down", ((1, "router"), (8, "router"), (2048, "router"))),
+)
+
+
+def launch_device_ms(fn, iters: int = 20) -> dict:
+    """{kernel name: device ms a call} of ``fn(i)`` from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(2):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+def _grouped_inputs(s, arch, role, cases):
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.modules import linear_spec
+    from repro_torch.models.moe import sort_by_expert
+    from repro_torch.serve.steps import serve_config_of
+    cfg = serve_config_of(get_config(arch))
+    n_in, n_out = (cfg.d_model, cfg.d_ff_expert) if role == "gate" else \
+        (cfg.d_ff_expert, cfg.d_model)
+    spec = linear_spec(cfg, f"expert_{role}", n_in, n_out).tt
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cores = [s.randn(e, *shp, dtype=torch.bfloat16, scale=1 / math.sqrt(shp[0]))
+             for shp in spec.core_matrix_shapes()]
+    out = []
+    for t, how in cases:
+        _, offsets = sort_by_expert(s._expert_ids(t, e, k, how), e)
+        out.append((t, how, offsets, s.randn(t * k, spec.n_in, dtype=torch.bfloat16)))
+    return spec, e, k, cores, out
+
+
+def tt_grouped(tree: Path) -> None:
+    import torch
+    cs, s = smoke(tree)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tt_linear as kt
+    tag = f"{tree.name} tt-grouped"
+    log = _build.BUILD_ROOT / _build.source_hash() / "libreprotorch.log"
+    if log.exists():  # ptxas -v of the grouped kernels: registers, spills, shared memory
+        lines = log.read_text().splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and any(
+                    n in line for n in ("tt_operators", "tt_ops_mma", "tt_wgmma")):
+                info = [ln.strip() for ln in lines[i + 1:i + 4]
+                        if "Compiling" not in ln]
+                print(f"[{tag}] ptxas {line.split('entry function')[1].strip()[:70]}: "
+                      + " | ".join(info), flush=True)
+    gm = getattr(torch, "_grouped_mm", None)
+    for arch, role, cases in TT_GROUPED_CASES:
+        spec, e, k, cores, inputs = _grouped_inputs(s, arch, role, cases)
+        w = s.dense_experts(cores, spec)
+        act = "silu" if role == "gate" else None
+        for t, how, offsets, x in inputs:
+            def run(i):
+                return kt.tt_linear_grouped(x, offsets, cores, spec, activation=act)
+
+            want = kt.tt_linear_grouped_ref(x, offsets, cores, spec, activation=act)
+            err = (run(0).float() - want.float()).abs().max().item()
+            per = launch_device_ms(run)
+            ops = sum(v for n, v in per.items() if "tt_op" in n)
+            con = sum(v for n, v in per.items() if "tt_fused" in n or "tt_wgmma" in n)
+            lib = float("nan")
+            if gm is not None:
+                offs = offsets[1:].contiguous()
+                lib = device_ms(lambda i: gm(x, w.transpose(1, 2), offs=offs))
+            plan = kt.grouped_plan(spec, t * k, e) if hasattr(kt, "grouped_plan") else None
+            route = plan.route if plan is not None else "decode tiles"
+            counts = (offsets[1:] - offsets[:-1]).tolist()
+            print(f"[{tag}] {card()}: {arch} {role} E={e} top-{k} T={t} ({t * k} rows, {how}: "
+                  f"{sum(c > 0 for c in counts)} experts with rows): device ms a call "
+                  f"{ops + con:.4f} = operator pass {ops:.4f} + contraction {con:.4f} "
+                  f"({route}); torch._grouped_mm {lib:.4f}; max abs err vs plain {err:.3g}; "
+                  + "; ".join(f"{n[:60]} {v:.4f}" for n, v in per.items()), flush=True)
+        del w
+        torch.cuda.empty_cache()
+    print(f"[{tag}] failures: {s.failures}; SM clock, power: {sm_clock()}", flush=True)
+
+
+def tt_grouped_routes() -> None:
+    import torch
+    _, s = smoke(ROOT)
+    from repro_torch.kernels import tt_linear as kt
+    default = kt.GROUPED_WGMMA_MIN_ROWS
+    for arch, role, _ in TT_GROUPED_CASES:
+        cfg_e = {"mixtral-8x22b": 8, "kimi-k2-1t-a32b": 384}[arch]
+        k = {"mixtral-8x22b": 2, "kimi-k2-1t-a32b": 8}[arch]
+        ts = sorted({max(1, n * cfg_e // k) for n in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+                     if n * cfg_e // k <= 4096})
+        spec, e, k, cores, inputs = _grouped_inputs(s, arch, role, [(t, "router") for t in ts])
+        act = "silu" if role == "gate" else None
+        for t, _, offsets, x in inputs:
+            line = []
+            for route, rows in (("decode tiles", 1 << 30), ("wgmma", 0)):
+                kt.GROUPED_WGMMA_MIN_ROWS = rows
+                try:
+                    if kt.grouped_plan(spec, t * k, e).route != route:
+                        continue
+                    ms = device_ms(lambda i: kt.tt_linear_grouped(x, offsets, cores, spec,
+                                                                  activation=act))
+                finally:
+                    kt.GROUPED_WGMMA_MIN_ROWS = default
+                line.append(f"{route} {ms:.4f}")
+            print(f"[tt-grouped-routes] {card()}: {arch} {role} T={t} ({t * k} rows, "
+                  f"{t * k / e:.1f} an expert): device ms a call " + ", ".join(line), flush=True)
+
+
+def tt_grouped_shapes() -> None:
+    _, s = smoke(ROOT)
+    from repro_torch.kernels import tt_linear as kt
+    pick = kt._wgmma_shape
+    for arch, role, _ in TT_GROUPED_CASES:
+        spec, e, k, cores, inputs = _grouped_inputs(s, arch, role, [(2048, "router")])
+        _, _, offsets, x = inputs[0]
+        act = "silu" if role == "gate" else None
+        planned = pick(spec)
+        p = kt._split(spec, kt.contraction_plan(spec).h, True)
+        ns, kp, bms = kt._pad16(p.nr), -(-kt._pad16(p.nl) // 64), planned[1]
+        for iw in (2, 4):
+            for stages in (2, 3, 4):
+                x_bytes, epi = kp * ns * 128, 64 * (bms + 4) * 4
+                end = 2 * iw * x_bytes + stages * (kp * 8192 + -(-ns // 64) * bms * 128)
+                smem = 1024 + end + (2 * epi if iw * x_bytes < epi else 0) + 2 * stages * 8
+                if smem > kt.SMEM_MAX:
+                    continue
+                kt._wgmma_shape = lambda sp, shape=(iw, bms, stages, smem): shape
+                kt._grouped_plan.cache_clear()
+                try:
+                    per = launch_device_ms(lambda i: kt.tt_linear_grouped(
+                        x, offsets, cores, spec, activation=act))
+                finally:
+                    kt._wgmma_shape = pick
+                    kt._grouped_plan.cache_clear()
+                ms = sum(v for n, v in per.items() if "tt_wgmma" in n)
+                mark = " <- grouped_plan" if (iw, stages) == (planned[0], planned[2]) else ""
+                print(f"[tt-grouped-shapes] {card()}: {arch} {role} T=2048: {iw} rows a "
+                      f"warpgroup, {stages} stages, {smem} bytes: contraction device ms a call "
+                      f"{ms:.4f}{mark}", flush=True)
+
+
 # parts of csrc/int4_matmul.cu's GEMV, each changed or switched off by a text patch
 INT4_VARIANTS = {
     "as committed": [],
@@ -732,6 +902,12 @@ def main() -> int:
         int4_plans()
     elif what == "int4-host":
         int4_host(Path(args[0]).resolve() if args else ROOT)
+    elif what == "tt-grouped":
+        tt_grouped(Path(args[0]).resolve() if args else ROOT)
+    elif what == "tt-grouped-routes":
+        tt_grouped_routes()
+    elif what == "tt-grouped-shapes":
+        tt_grouped_shapes()
     else:
         print(__doc__, file=sys.stderr)
         return 2
