@@ -24,8 +24,10 @@ then:
    int4 linears on f32 activations, and one full-width kimi-k2 MoE layer;
    the attention phases at head_dim 112 (kimi-k2's H64/Hkv8) run paged
    decode and prefill over bf16 and int8 pools and ring decode and prefill
-   over wrapped rings;
-2. for each of the seven serving paths — llama2-7b (paged K/V),
+   over wrapped rings; the whisper-base phases run paged decode and prefill
+   at H8/Hkv8/Dh64, tt_linear on its three d = 3 specs with their biased
+   epilogues and its biased int4 512 -> 512;
+2. for each of the eight serving paths — llama2-7b (paged K/V),
    recurrentgemma-2b (griffin: RG-LRU state and windowed attention rings),
    llama2-7b-tt-embed (llama2-7b's paged path with its embedding table a
    vocab-axis TT, on the same params with TT cores swapped in for the table),
@@ -35,16 +37,19 @@ then:
    there with each TT linear's recovery held to a bound, the int4 leaves
    bitwise the CPU's, then ``save_compressed`` and ``load_compressed``
    bitwise, and the loaded tree served), mixtral-8x22b (MoE: 56 layers of
-   8 TT experts, top-2, through the sliding-window ring backend) and
+   8 TT experts, top-2, through the sliding-window ring backend),
    kimi-k2-1t-a32b (MoE: 61 layers of 384 TT experts, top-8, 64 heads of
-   112 over 8 KV heads, vocab 163840, through the paged backend) — at full
-   width and depth:
+   112 over 8 KV heads, vocab 163840, through the paged backend) and
+   whisper-base (encoder-decoder: 6 + 6 layers, each request's seeded
+   (1500, 512) frames encoded at its admission into a per-slot context, the
+   decoder's self-attention paged) — at full width and depth:
    a. a logits check at the serve phase's geometry — 8 slots prefilling the
       serve phase's 8 prompts in 256-token chunks, then 4 decode steps,
       through the kernels against the same steps through the plain versions
       (``dispatch.force_plain()``) on the card (rwkv6-7b and the MoE paths
       layer by layer on the plain route's input, the MoE paths' on their
-      first 8 layers: mixtral's over rings, kimi-k2's over a paged pool);
+      first 8 layers: mixtral's over rings, kimi-k2's over a paged pool;
+      whisper-base's also holds the encoder contexts its begin steps wrote);
    b. the serve phase — the continuous-batching ``Engine`` serving those 8
       requests (random weights from a seed), with every kernel's launch
       counter reset just before and read just after;
@@ -54,7 +59,8 @@ then:
       count of device kernels and of device-to-host copies a call (none on
       the MoE paths') and the scans' and the int4 kernels' device time a
       call and a launch (the MoE paths': the grouped tt_linear's operator
-      pass and contraction, named apart);
+      pass and contraction, named apart; whisper-base's also one begin step,
+      with no device-to-host copy);
    d. on llama2-7b only, the serving front end: ``[frontend]`` serves 12
       requests through ``Engine.run`` and the ``AsyncEngine`` without and
       with dispatch-ahead (bitwise the same tokens, every ahead dispatch
@@ -74,6 +80,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -142,6 +149,7 @@ PATH_KERNELS = {
                       "int4_matmul_f32"),
     "kimi-k2-1t-a32b": ("tt_linear", "tt_linear_grouped", "int4_matmul", "int4_matmul_f32",
                         "paged_attention", "prefill_attention"),
+    "whisper-base": ("tt_linear", "int4_matmul", "paged_attention", "prefill_attention"),
 }
 
 
@@ -195,6 +203,24 @@ def kernel_events(prof):
     device work: it once read 56 ms of a chunk."""
     return [e for e in prof.key_averages() if e.device_time_total > 0
             and not e.key.startswith(("aten::", "cuda", "Command Buffer Full"))]
+
+
+@functools.lru_cache(maxsize=1)
+def _hand_kernel_names():
+    """A pattern matching the ``__global__`` functions of ``csrc/``."""
+    import re
+    names = set()
+    for f in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu*"):
+        names |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                                r"(\w+)\s*[(<]", f.read_text()))
+    return re.compile(r"(?:^|[\s:])(?:" + "|".join(sorted(names)) + r")[<(]")
+
+
+def hand_kernel(key: str) -> bool:
+    """Whether a profiled device kernel is one of the hand kernels: its name
+    is a ``__global__`` function of ``csrc/`` (PyTorch's softmax, say, also
+    lives in an anonymous namespace)."""
+    return _hand_kernel_names().search(key) is not None
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS):
@@ -308,7 +334,8 @@ class Smoke:
         lib_ms = self.time_ms(lambda i: torch.matmul(x, w))
         del eye, w
         nbytes = 2 * (x.numel() + b * spec.n_out + (b * spec.n_out if "residual" in epi else 0)) \
-            + sum(c.numel() * c.element_size() for c in cores)
+            + sum(c.numel() * c.element_size() for c in cores) \
+            + (4 * spec.n_out if "bias" in epi else 0)
         # the operations of the cheapest contraction order (the staged order
         # at llama2 gate/up, a two-half split elsewhere)
         orders = k.tt_order_flops(spec)
@@ -323,10 +350,11 @@ class Smoke:
                     ms, plain_ms, lib_ms, "torch.matmul, dense reconstructed W",
                     nbytes, b * orders[order])
 
-    def int4_phase(self, k_in, m, b, routes=(None,)):
+    def int4_phase(self, k_in, m, b, routes=(None,), bias=False):
         """``routes``: None takes the wrapper's route for B (the GEMV up to
         GEMV_MAX_B, the GEMM above), "gemv" / "gemm" force one (the crossover
-        phases time both on the same weights and inputs)."""
+        phases time both on the same weights and inputs); ``bias`` adds an f32
+        bias to the epilogue (whisper's biased q/v)."""
         torch = self.torch
         from repro_torch.core.quant import dequantize_int4, quantize_int4
         from repro_torch.kernels import int4_matmul as k
@@ -337,6 +365,8 @@ class Smoke:
         x = self.randn(b, k_in, dtype=torch.bfloat16)
         epi = dict(residual=self.randn(b, m, dtype=torch.bfloat16)) if m < k_in else (
             dict(activation="silu") if m > k_in else {})
+        if bias:
+            epi["bias"] = self.randn(m, scale=0.1)
         want = k.int4_matmul_ref(x, ws[0]["qweight"], ws[0]["scales"], 128, **epi)
 
         def run(i, fn=k.int4_matmul):
@@ -348,7 +378,7 @@ class Smoke:
         lib_ms = self.time_ms(lambda i: torch.matmul(x, dq[i % len(dq)]))
         del dq
         nbytes = 2 * x.numel() + wbytes + 2 * m * (k_in // 128) + 2 * b * m \
-            + (2 * b * m if "residual" in epi else 0)
+            + (2 * b * m if "residual" in epi else 0) + (4 * m if bias else 0)
         default = k.GEMV_MAX_B
         for route in routes:
             k.GEMV_MAX_B = {None: default, "gemv": 8 * k.GEMV_MAX_NT, "gemm": 0}[route]
@@ -364,7 +394,8 @@ class Smoke:
                        f"of {p.split.per_k}")
             else:
                 how = "wgmma GEMM"
-            self.record("int4_matmul", f"{k_in}->{m} B={b}" + (f" route {route}" if route else ""),
+            self.record("int4_matmul", f"{k_in}->{m} B={b}" + (" bias" if bias else "")
+                        + (f" route {route}" if route else ""),
                         got, want, 1e-2,
                         f"bf16 output rounding; products are exact and summed in f32 in both; "
                         f"{how}", ms, plain_ms, lib_ms, "torch.matmul, dequantized bf16 W",
@@ -1197,8 +1228,20 @@ class Smoke:
               f"{'ok' if good else 'FAIL'}", flush=True)
         return good
 
+    def compare_ctx(self, path, kernel, plain, what):
+        """Kernel-route against plain-route values by the logits check's first
+        two criteria: max|d|/max|ref| <= 0.1 and mean|d|/mean|ref| <= 0.05."""
+        a, b = kernel.float(), plain.float()
+        rel = (a - b).abs().max().item() / b.abs().max().item()
+        mean_rel = (a - b).abs().mean().item() / b.abs().mean().item()
+        good = all(map(math.isfinite, (rel, mean_rel))) and rel <= 0.1 and mean_rel <= 0.05
+        print(f"[logits {path}] {what}: max|d|/max|ref|={rel:.4f} (tol 0.1) "
+              f"mean|d|/mean|ref|={mean_rel:.4f} (tol 0.05) {'ok' if good else 'FAIL'}",
+              flush=True)
+        return good
+
     def logits_check(self, cfg, params, prompts, max_len, every_position, path,
-                     decode_steps=4):
+                     decode_steps=4, frames=None):
         """The serve phase's geometry (8 slots, its prompts in 256-token
         chunks, then ``decode_steps`` decode steps on fixed random tokens)
         through the kernels and through the plain versions.  The logits of
@@ -1206,15 +1249,22 @@ class Smoke:
         (a 256000-token vocabulary) those of each row's last position in
         each chunk, and the logits of every decode step.  bf16 through every
         layer: kernels and plain versions sum in different orders, so their
-        bf16 roundings differ and the differences compound layer by layer."""
+        bf16 roundings differ and the differences compound layer by layer.
+        An enc-dec session first runs each slot's begin step on ``frames``
+        (a (T_enc, D) tensor a slot), and the encoder contexts it writes
+        (``encode_ctx``'s cross K/V) are compared too."""
         torch = self.torch
         from repro_torch.kernels import dispatch
         lens, chunks, steps = self._check_inputs(cfg, prompts, decode_steps)
-        out = {}
+        out, ctx = {}, {}
         for plain in (False, True):
             sess, state = self.session(cfg, max_len)
             pre, dec = [], []
             with dispatch.force_plain() if plain else contextlib.nullcontext():
+                if frames is not None:
+                    for slot, f in enumerate(frames):
+                        state = sess.begin_sequence(params, state, slot, f[None])
+                    ctx[plain] = state["cross"]
                 for tok, pos in chunks:
                     real = pos >= 0
                     if every_position:
@@ -1234,11 +1284,15 @@ class Smoke:
         geometry = f"prompts {lens.tolist()} in {len(chunks)} chunks of 256, {len(steps)} " \
                    f"decode steps x {len(prompts)} slots, bf16 through {cfg.n_layers} layers"
         ok = True
+        for nm in ("k", "v") if ctx else ():
+            ok &= self.compare_ctx(path, ctx[False][nm], ctx[True][nm],
+                                   f"encoder context {nm} {tuple(ctx[True][nm].shape)} f32 "
+                                   f"after {cfg.n_enc_layers} bf16 encoder layers")
         for k, name in enumerate(("prefill", "decode")):
             rows = f"{out[True][k].shape[0]} rows: {which if k == 0 else 'every step'}"
             ok &= self.compare_logits(path, out[False][k], out[True][k],
                                       f"{name} ({rows}; {geometry})")
-        del out
+        del out, ctx
         torch.cuda.empty_cache()
         if not ok:
             self.failures.append(f"{path} full-width logits check")
@@ -1299,6 +1353,20 @@ class Smoke:
         if not ok:
             self.failures.append(f"{path} full-width layer-by-layer check")
 
+    def seeded_biases(self, params):
+        """Fill every bias leaf (a linear's ``b``, a layernorm's ``bias``)
+        with seeded N(0, 0.1²) values in place: ``init_lm`` makes them zeros,
+        which would leave the kernels' bias epilogues unchecked."""
+        for k, v in params.items():
+            if isinstance(v, dict):
+                self.seeded_biases(v)
+            elif isinstance(v, list):  # per-layer blocks (TT cores are lists of tensors)
+                for item in v:
+                    if isinstance(item, dict):
+                        self.seeded_biases(item)
+            elif k in ("b", "bias"):
+                v.copy_(self.randn(*v.shape, scale=0.1))
+
     # -- serve phase (a main path) ---------------------------------------------
     def engine(self, cfg, params, max_len, **kw):
         """An Engine at the serve geometry: 8 slots, block 16, 256-token
@@ -1308,7 +1376,9 @@ class Smoke:
                       prefill_batch=4, cache_dtype="bfloat16", device=self.dev, **kw)
 
     # -- serve phase (a main path) ---------------------------------------------
-    def serve(self, cfg, params, card, prompts, max_len, path):
+    def serve(self, cfg, params, card, prompts, max_len, path, frames=None):
+        """``frames``: a request's encoder frames each (enc-dec), encoded at
+        its admission inside its time to first token."""
         torch = self.torch
         np = self.np
         eng = self.engine(cfg, params, max_len)
@@ -1328,7 +1398,8 @@ class Smoke:
         torch.cuda.synchronize()
         reset_counters()
         t0 = time.perf_counter()
-        reqs = [eng.submit(p, max_tokens=32) for p in prompts]
+        reqs = [eng.submit(p, max_tokens=32, enc_frames=None if frames is None else frames[i])
+                for i, p in enumerate(prompts)]
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1363,6 +1434,9 @@ class Smoke:
             if not good:
                 self.failures.append(f"serve {path}: {what}")
         print(f"[serve {path}] checks: {checks}", flush=True)
+        if frames is not None:
+            print(f"[serve {path}] greedy tokens, the first 8 a request: "
+                  f"{[r.out_tokens[:8] for r in reqs]}", flush=True)
         return launches
 
     # -- the compressed path: compress, checkpoint, reload ----------------------
@@ -1559,22 +1633,26 @@ class Smoke:
         del sess, state, lg
 
     # -- decode-step and prefill-chunk profile ----------------------------------
-    def profile(self, cfg, params, card, max_len, path, steps: int = 5):
+    def profile(self, cfg, params, card, max_len, path, steps: int = 5, frames=None):
         """Wall time vs device kernel time of full-width decode steps (8 slots
-        at ~1 K context) and of one 256-token prefill chunk for all 8 slots:
-        the device's busy share, the top kernels and each hand kernel's
-        device time."""
+        at ~1 K context, ~0.5 K where ``max_len`` is 1024) and of one
+        256-token prefill chunk for all 8 slots: the device's busy share, the
+        top kernels and each hand kernel's device time; for an enc-dec
+        session also one begin step on ``frames`` (no device-to-host copy
+        allowed)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         sess, state = self.session(cfg, max_len)
+        n_ctx = min(4, (max_len - 256 - steps - 2) // 256)  # chunks before the profiled calls
+        ctx_text = f"ctx ~{n_ctx / 4:g} K"
         toks = torch.randint(0, cfg.vocab_size, (8, 256), device=self.dev,
                              dtype=torch.int32, generator=self.gen)
         pos = torch.arange(256, device=self.dev, dtype=torch.int32)[None].repeat(8, 1)
         cols = torch.full((8,), 255, device=self.dev)
-        for c in range(4):
+        for c in range(n_ctx):
             _, state = sess.prefill_chunk(params, state, toks, pos + 256 * c, logit_cols=cols)
         dtok = toks[:, :1].contiguous()
-        dpos = torch.full((8,), 1024, device=self.dev, dtype=torch.int32)
+        dpos = torch.full((8,), 256 * n_ctx, device=self.dev, dtype=torch.int32)
         for i in range(2):
             _, state = sess.decode_step(params, state, dtok, dpos + i)
         torch.cuda.synchronize()
@@ -1589,10 +1667,7 @@ class Smoke:
             events = kernel_events(prof)
             device_s = sum(e.self_device_time_total for e in events) / 1e6
             top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-            # the hand kernels live in anonymous namespaces of csrc/ (attention tiles
-            # in flash::); PyTorch's own (at::native::(anonymous namespace)::...) do not count
-            hand = [e for e in events if "flash::" in e.key
-                    or ("(anonymous namespace)::" in e.key and "at::" not in e.key)]
+            hand = [e for e in events if hand_kernel(e.key)]
             hand_s = sum(e.self_device_time_total for e in hand) / 1e6
             attn_s = sum(e.self_device_time_total for e in hand if "flash::" in e.key
                          or "ring_decode" in e.key or "paged_decode" in e.key) / 1e6
@@ -1613,7 +1688,7 @@ class Smoke:
             print(f"[profile {path}] {what}: device kernels {n_kernels / n:.1f} per call; "
                   f"device-to-host copies {dtoh / n:.1f} per call; SM clock, power just after: "
                   f"{clock}", flush=True)
-            if cfg.family == "moe" and dtoh:
+            if (cfg.family == "moe" or what.startswith("begin")) and dtoh:
                 self.failures.append(f"profile {path} {what}: {dtoh} device-to-host copies")
             if cfg.family == "moe":  # the grouped tt_linear's two launches, named apart
                 parts = (("operator pass", [e for e in hand if "tt_ops_mma" in e.key]),
@@ -1642,11 +1717,20 @@ class Smoke:
 
         def chunk():
             nonlocal state
-            _, state = sess.prefill_chunk(params, state, toks, pos + 1024 + steps + 2,
+            _, state = sess.prefill_chunk(params, state, toks, pos + 256 * n_ctx + steps + 2,
                                           logit_cols=cols)
 
-        report("decode step (8 slots, ctx ~1 K)", decode, steps)
-        report("prefill chunk (8 slots x 256 tokens at ctx ~1 K)", chunk, 1)
+        def begin():
+            nonlocal state
+            state = sess.begin_sequence(params, state, 0, frames[0][None])
+
+        report(f"decode step (8 slots, {ctx_text})", decode, steps)
+        report(f"prefill chunk (8 slots x 256 tokens at {ctx_text})", chunk, 1)
+        if frames is not None:
+            begin()  # warm: the first encoder pass at 1500 rows allocates its buffers
+            torch.cuda.synchronize()
+            report(f"begin step (1 request x {cfg.enc_len} frames: encoder + cross K/V of "
+                   f"{cfg.n_layers} layers)", begin, 1)
         del state
         torch.cuda.empty_cache()
 
@@ -1883,10 +1967,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    import numpy as np  # noqa: F401
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.models import griffin, rwkv, transformer
+    from repro_torch.models import griffin, rwkv, transformer, whisper
     from repro_torch.models.modules import embed_spec, init_embed, linear_spec
     from repro_torch.serve.steps import serve_config_of
 
@@ -1989,10 +2073,31 @@ def main() -> int:
                 s.attn_phase(decode, 8, int8, h=64, dh=112)
         for sq in (1, 256):
             s.ring_phase("kimi-k2-shaped", sq, 64, 8, 112, 2048, 2304, False, rg_ctx)
+    # whisper-base: paged decode and prefill at H8/Hkv8/Dh64, its d = 3 TT
+    # specs (a one-core half) with their biased epilogues, its biased int4
+    # q/v at a decode tick and past the encoder's 1500 rows
+    with s.own_generators(SEED + 64):
+        for decode in (True, False):
+            for int8 in (False, True):
+                s.attn_phase(decode, 8, int8, h=8, dh=64)
+        wcfg = serve_config_of(get_config("whisper-base"))
+        for role, n_in, n_out in (("attn_o", 512, 512), ("mlp_up", 512, 2048),
+                                  ("mlp_down", 2048, 512)):
+            spec = linear_spec(wcfg, role, n_in, n_out).tt
+            for b in (8, 2048):
+                epi = dict(bias=s.randn(n_out, scale=0.1))
+                if role == "mlp_up":
+                    epi["activation"] = "gelu"
+                else:
+                    epi["residual"] = s.randn(b, n_out, dtype=torch.bfloat16)
+                s.tt_phase("whisper-base", role.replace("mlp_", ""), spec, b, epi)
+        for b in (8, 1536):
+            s.int4_phase(512, 512, b, bias=True)
     print(f"[phases] kernel phases took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     launches = {}
-    models = {"dense": transformer, "moe": transformer, "griffin": griffin, "rwkv": rwkv}
+    models = {"dense": transformer, "moe": transformer, "griffin": griffin, "rwkv": rwkv,
+              "encdec": whisper}
     params = None
     # (path, arch, max_len, prompt lengths in [lo, hi)); the TT-embed path
     # reuses llama2-7b's params with TT embedding cores in place of the table;
@@ -2007,7 +2112,8 @@ def main() -> int:
                                          1537),
                                         ("mixtral-8x22b", "mixtral-8x22b", 2048, 64, 1025),
                                         ("kimi-k2-1t-a32b", "kimi-k2-1t-a32b", 2048, 64,
-                                         1025)):
+                                         1025),
+                                        ("whisper-base", "whisper-base", 1024, 4, 449)):
         cfg = serve_config_of(get_config(arch))
         lens = s.rng.integers(lo, hi, 8)
         # one prompt wraps its ring where the prompts may pass the window
@@ -2037,10 +2143,17 @@ def main() -> int:
             params = None
             torch.cuda.empty_cache()
             params = models[cfg.family].init_lm(cfg, seed=SEED, device="cuda")
+            if cfg.family == "encdec":
+                s.seeded_biases(params)
             torch.cuda.synchronize()
             print(f"[init] {arch} serving config ({cfg.n_layers} layers, int4 g128 + TT, bf16) "
                   f"random params in {time.perf_counter() - t0:.1f} s; "
                   f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+        frames = host_frames = None
+        if cfg.family == "encdec":  # a request's (1500, 512) stub-frontend frames each
+            host_frames = [s.rng.standard_normal((cfg.enc_len, cfg.d_model)).astype(np.float32)
+                           for _ in prompts]
+            frames = [torch.from_numpy(f).to(s.dev) for f in host_frames]
         if cfg.family == "rwkv":
             s.layerwise_check(cfg, params, prompts, path)
         elif cfg.family == "moe":
@@ -2050,15 +2163,15 @@ def main() -> int:
                   f"{time.perf_counter() - t_check:.1f} s", flush=True)
         else:
             s.logits_check(cfg, params, prompts, max_len,
-                           every_position=cfg.vocab_size <= 65536, path=path)
+                           every_position=cfg.vocab_size <= 65536, path=path, frames=frames)
         if planted is not None:
             s.planted_vs_loaded(cfg, params, planted, path)
             planted = None
         torch.cuda.reset_peak_memory_stats()
-        counts = s.serve(cfg, params, card, prompts, max_len, path)
+        counts = s.serve(cfg, params, card, prompts, max_len, path, frames=host_frames)
         launches.update({k: counts[k] for k in PATH_KERNELS[path] if k not in launches})
         launches[path] = counts
-        s.profile(cfg, params, card, max_len, path)
+        s.profile(cfg, params, card, max_len, path, frames=frames)
         if path == "llama2-7b":  # the serving front end on the paper's main path
             t_front = time.perf_counter()
             s.frontend(cfg, params, card, max_len, path)

@@ -1,4 +1,4 @@
-"""Architecture registry: the configs the port serves so far."""
+"""Architecture registry: every config of the JAX package, mirrored."""
 from importlib import import_module
 
 _MODULES = {
@@ -13,6 +13,7 @@ _MODULES = {
     "rwkv6-7b": "rwkv6_7b",
     "mixtral-8x22b": "mixtral_8x22b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "whisper-base": "whisper_base",
 }
 
 ALL_ARCHS = tuple(_MODULES)

@@ -2,11 +2,12 @@
 
 ``params_from_jax`` takes the tree ``repro.models.transformer.init_lm``
 (dense and MoE; the paged and ring backends share it; an MoE layer's expert
-leaves keep their expert axis), ``repro.models.griffin.init_lm``
-or ``repro.models.rwkv.init_lm`` builds, with every leaf already a numpy
-array (e.g. after ``jax.device_get``) or a CPU tensor (a restored
-checkpoint), and returns the port's params on ``device``: each stacked
-leading layer axis (dense segments, griffin's pattern groups, rwkv's blocks)
+leaves keep their expert axis), ``repro.models.griffin.init_lm``,
+``repro.models.rwkv.init_lm`` or ``repro.models.whisper.init_lm`` builds,
+with every leaf already a numpy array (e.g. after ``jax.device_get``) or a
+CPU tensor (a restored checkpoint), and returns the port's params on
+``device``: each stacked leading layer axis (dense segments, griffin's
+pattern groups, rwkv's blocks, whisper's encoder and decoder blocks)
 becomes a list of per-layer (per-group) dicts.  Lists of leaves (TT cores, a
 TT embedding's included) stay lists.  ``params_to_jax`` is its inverse, the
 layout a checkpoint is written in.  numpy holds bf16 leaves as
@@ -61,22 +62,29 @@ def _stack(layers: list, device):
     return torch.stack([t.to(device) for t in layers])
 
 
+def _stacked_leaves(cfg: ModelConfig) -> dict[str, int]:
+    """The tree's keys whose leaves carry a leading layer axis, with its
+    length (dense and MoE segments are handled apart)."""
+    if cfg.family == "rwkv":
+        return {"blocks": cfg.n_layers}
+    if cfg.family == "griffin":
+        return {"groups": pattern_plan(cfg)[0]}
+    if cfg.family == "encdec":
+        return {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_layers}
+    return {}
+
+
 def params_from_jax(tree: dict[str, Any], cfg: ModelConfig, *, device=None) -> dict[str, Any]:
     """Numpy-leaved JAX param tree -> the port's params on ``device``."""
     device = resolve_device(device)
-    if cfg.family == "rwkv":
+    stacked = _stacked_leaves(cfg)
+    if stacked:
         out = {k: _map(v, lambda a: _tensor(a, device))
-               for k, v in tree.items() if k != "blocks"}
-        out["blocks"] = [_map(tree["blocks"], lambda a, i=i: _tensor(_row(a, i), device))
-                         for i in range(cfg.n_layers)]
-        return out
-    if cfg.family == "griffin":
-        n_groups = pattern_plan(cfg)[0]
-        out = {k: _map(v, lambda a: _tensor(a, device))
-               for k, v in tree.items() if k != "groups"}
-        if n_groups:
-            out["groups"] = [_map(tree["groups"], lambda a, i=i: _tensor(_row(a, i), device))
-                             for i in range(n_groups)]
+               for k, v in tree.items() if k not in stacked}
+        for k, n in stacked.items():
+            if n:  # griffin with no whole pattern group has no "groups"
+                out[k] = [_map(tree[k], lambda a, i=i: _tensor(_row(a, i), device))
+                          for i in range(n)]
         return out
     plan = segment_plan(cfg)
     if len(tree["segments"]) != len(plan):
@@ -91,14 +99,15 @@ def params_from_jax(tree: dict[str, Any], cfg: ModelConfig, *, device=None) -> d
 
 def params_to_jax(params: dict[str, Any], cfg: ModelConfig, *, device="cpu") -> dict[str, Any]:
     """The port's params -> the JAX package's tree layout, leaves on
-    ``device`` (the host by default): each segment, griffin's pattern groups
-    and rwkv's blocks stacked along a leading layer axis, every other leaf as
-    it is (moved to ``device``)."""
-    stacked = {"dense": "segments", "moe": "segments", "griffin": "groups",
-               "rwkv": "blocks"}[cfg.family]
-    out = {k: _map(v, lambda t: t.to(device)) for k, v in params.items() if k != stacked}
-    if stacked == "segments":
+    ``device`` (the host by default): each segment, griffin's pattern groups,
+    rwkv's blocks and whisper's encoder and decoder blocks stacked along a
+    leading layer axis, every other leaf as it is (moved to ``device``)."""
+    stacked = _stacked_leaves(cfg)
+    out = {k: _map(v, lambda t: t.to(device)) for k, v in params.items()
+           if k not in stacked and k != "segments"}
+    if cfg.family in ("dense", "moe"):
         out["segments"] = [_stack(seg, device) for seg in params["segments"]]
-    elif stacked in params:
-        out[stacked] = _stack(params[stacked], device)
+    for k in stacked:
+        if k in params:
+            out[k] = _stack(params[k], device)
     return out

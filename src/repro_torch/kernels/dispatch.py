@@ -130,7 +130,8 @@ def card_limits(cfg, backend: str) -> list[str]:
     attention kernels' head dims are checked for each kernel the backend
     runs, under its own name: the paged backend's decode kernel
     (``paged_attention.HEAD_DIMS``) and chunked-prefill kernel
-    (``prefill_attention.HEAD_DIMS``), the ring backend's ring kernel (the
+    (``prefill_attention.HEAD_DIMS``), which whisper's encdec backend runs
+    for its decoder's self-attention too, the ring backend's ring kernel (the
     prefill tuple: its decode shares the decode kernel's body).
     Kernels with no limit a config can cross (the RG-LRU scan; tt_linear,
     whose bf16 specs past the fused kernel's d <= 8 and ranks <= 32 take the
@@ -140,7 +141,7 @@ def card_limits(cfg, backend: str) -> list[str]:
     tt_linear, which has no staged kernel: int4 or dense experts, and TT
     experts past the fused route (bf16 activations, d <= 8, ranks <= 32), are
     refused."""
-    from ..models import griffin, modules, moe, rwkv, transformer
+    from ..models import griffin, modules, moe, rwkv, transformer, whisper
     g = cfg.n_heads // max(cfg.n_kv_heads, 1)
     out = []
     if cfg.family == "rwkv":
@@ -148,6 +149,8 @@ def card_limits(cfg, backend: str) -> list[str]:
         if cfg.rwkv_head_dim not in _wkv.KERNEL_HEAD_DIMS:
             out.append(f"wkv_scan takes head dims {_wkv.KERNEL_HEAD_DIMS}; rwkv_head_dim is "
                        f"{cfg.rwkv_head_dim}")
+    elif cfg.family == "encdec":  # the encoder's and cross attention are plain ops
+        specs = [whisper.attn_specs(cfg), modules.mlp_specs(cfg, True)]
     else:
         flags = (True,) if cfg.family == "griffin" else \
             {flag for _, flag in transformer.segment_plan(cfg)}
@@ -166,7 +169,8 @@ def card_limits(cfg, backend: str) -> list[str]:
                                f"compute_dtype {cfg.compute_dtype}")
         if cfg.family == "griffin":
             specs.append(griffin.rec_specs(cfg))
-        if backend == "paged":
+    if cfg.family != "rwkv":
+        if backend in ("paged", "encdec"):
             if cfg.head_dim not in _paged.HEAD_DIMS:
                 out.append(f"paged_attention (decode) takes head_dim {_paged.HEAD_DIMS}; "
                            f"head_dim is {cfg.head_dim}")

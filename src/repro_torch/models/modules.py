@@ -120,14 +120,24 @@ def linear_param_bits(spec: LinearSpec, param_bits: int = 16) -> int:
 # ---------------------------------------------------------------------------
 # Norms and rotary positions
 # ---------------------------------------------------------------------------
-def init_norm(dim: int, param_dtype, *, device) -> dict[str, Any]:
-    return {"scale": torch.ones(dim, dtype=param_dtype, device=device)}
+def init_norm(dim: int, param_dtype, *, device, norm_type: str = "rmsnorm") -> dict[str, Any]:
+    """Norm gains (ones), plus a bias (zeros) for ``norm_type="layernorm"``."""
+    p = {"scale": torch.ones(dim, dtype=param_dtype, device=device)}
+    if norm_type == "layernorm":
+        p["bias"] = torch.zeros(dim, dtype=param_dtype, device=device)
+    return p
 
 
 def apply_norm(params, x, eps: float = 1e-5):
-    """RMSNorm in f32, cast back to the input dtype (the ported configs'
-    ``norm_type``; layernorm arrives with whisper)."""
-    y = F.rms_norm(x.to(torch.float32), (x.shape[-1],), params["scale"].to(torch.float32), eps)
+    """RMSNorm, or LayerNorm when the params carry a bias (``init_norm``'s
+    ``norm_type="layernorm"``): mean and variance in f32, cast back to the
+    input dtype."""
+    xf = x.to(torch.float32)
+    scale = params["scale"].to(torch.float32)
+    if "bias" in params:
+        y = F.layer_norm(xf, (x.shape[-1],), scale, params["bias"].to(torch.float32), eps)
+    else:
+        y = F.rms_norm(xf, (x.shape[-1],), scale, eps)
     return y.to(x.dtype)
 
 
@@ -257,9 +267,16 @@ def ring_kv_update(cache: dict, k_new, v_new, positions, index=None) -> dict:
 # ---------------------------------------------------------------------------
 def mlp_specs(cfg: ModelConfig, ttd_block: bool, d_in: int | None = None,
               d_ff: int | None = None, prefix: str = "mlp") -> dict[str, LinearSpec]:
-    """Gated MLP (swiglu | geglu), the ported configs' ``act``; an MoE
+    """Gated MLP (swiglu | geglu), or for ``act="gelu_mlp"`` the plain
+    up -> GELU -> down MLP, biased under layernorm (whisper); an MoE
     expert's is the same with ``prefix="expert"`` and ``d_ff_expert``."""
     d, f = d_in or cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act == "gelu_mlp":
+        bias = cfg.norm_type == "layernorm"
+        return {
+            "up": linear_spec(cfg, f"{prefix}_up", d, f, bias=bias, ttd_block=ttd_block),
+            "down": linear_spec(cfg, f"{prefix}_down", f, d, bias=bias, ttd_block=ttd_block),
+        }
     return {
         "gate": linear_spec(cfg, f"{prefix}_gate", d, f, ttd_block=ttd_block),
         "up": linear_spec(cfg, f"{prefix}_up", d, f, ttd_block=ttd_block),
@@ -274,13 +291,40 @@ def init_mlp(specs: dict[str, LinearSpec], param_dtype, *, generator, device):
 
 def apply_mlp(params, x, specs: dict[str, LinearSpec], cfg: ModelConfig, compute_dtype,
               residual=None):
-    """The gate activation fuses into the gate projection's epilogue and the
-    block's skip connection into the down projection's (TTDLinear-Res)."""
-    act = "silu" if cfg.act == "swiglu" else "gelu"
-    g = apply_linear(params["gate"], x, specs["gate"], compute_dtype, activation=act)
-    u = apply_linear(params["up"], x, specs["up"], compute_dtype)
-    return apply_linear(params["down"], g * u, specs["down"], compute_dtype,
-                        residual=residual)
+    """The gate (or, ungated, the up) activation fuses into that
+    projection's epilogue and the block's skip connection into the down
+    projection's (TTDLinear-Res)."""
+    if "gate" in specs:
+        act = "silu" if cfg.act == "swiglu" else "gelu"
+        g = apply_linear(params["gate"], x, specs["gate"], compute_dtype, activation=act)
+        h = g * apply_linear(params["up"], x, specs["up"], compute_dtype)
+    else:
+        h = apply_linear(params["up"], x, specs["up"], compute_dtype, activation="gelu")
+    return apply_linear(params["down"], h, specs["down"], compute_dtype, residual=residual)
+
+
+# ---------------------------------------------------------------------------
+# Dense attention (the encoder's self-attention and cross-attention; plain
+# PyTorch ops, as the JAX package leaves them to XLA)
+# ---------------------------------------------------------------------------
+def attention_dense(q, k, v, *, causal: bool = False, scale=None):
+    """Unblocked attention over every key: q (B, Sq, H, Dh), k/v (B, Skv,
+    Hkv, Dh) -> (B, Sq, H, Dh) in v's dtype.  Scores and softmax in f32, the
+    probabilities rounded to v's dtype for the product with v, as
+    ``repro.models.modules.attention_dense``; ``causal`` masks key j > query
+    i (positions 0..S-1 on both sides)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    scale = scale or 1.0 / math.sqrt(dh)
+    qh = q.reshape(b, sq, hkv, h // hkv, dh).permute(0, 2, 3, 1, 4).to(torch.float32)
+    kh = k.permute(0, 2, 1, 3).to(torch.float32)[:, :, None]       # (B, Hkv, 1, Skv, Dh)
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale           # (B, Hkv, G, Sq, Skv)
+    if causal:
+        keep = torch.ones(sq, k.shape[1], dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.matmul(p, v.permute(0, 2, 1, 3)[:, :, None])       # (B, Hkv, G, Sq, Dh)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 
 Ported: the dense and MoE families' paged backend (shared block pools plus
 per-slot block tables) and ring backend (per-slot K/V rings), griffin's recurrent
-backend (RG-LRU state, conv tails and windowed attention rings) and rwkv's
-(wkv matrices and token-shift tails).  Every
-other family or backend raises the reference's ``NotImplementedError``.
+backend (RG-LRU state, conv tails and windowed attention rings), rwkv's
+(wkv matrices and token-shift tails) and whisper's encdec backend (paged
+decoder self-attention plus a per-slot encoder context).  Any other family
+and backend pair raises the reference's ``NotImplementedError``.
 ``tokens``/``positions`` follow the reference's convention: rows are decode
 slots, positions are per-sequence absolute indices, ``-1`` marks
 padding/inactive rows.
@@ -12,7 +13,9 @@ padding/inactive rows.
 A session declares what the engine needs to know about its state:
 ``uses_blocks`` (block-pool capacity accounting applies) and ``slot_axis``,
 the axis of every state leaf that indexes slots (``None`` when no leaf has
-one: paged pools are shared and block ownership isolates sequences).
+one: paged pools are shared and block ownership isolates sequences), and
+``needs_encoder_ctx``: each admitted request's encoder context is written
+by ``begin_sequence`` before it prefills (enc-dec).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from .._device import resolve_device
 from ..config import ModelConfig
 from ..kernels.dispatch import check_card_support
-from . import griffin, rwkv, transformer
+from . import griffin, rwkv, transformer, whisper
 
 CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int8": torch.int8}
@@ -69,6 +72,7 @@ class InferenceSession:
     backend = "?"
     uses_blocks = False
     slot_axis: int | None = 0
+    needs_encoder_ctx = False
 
     def __init__(self, cfg: ModelConfig, spec: SessionSpec, device=None):
         self.cfg = cfg
@@ -178,6 +182,39 @@ class RwkvSession(InferenceSession):
         return rwkv.decode_session_step(params, self.cfg, state, tokens, positions)
 
 
+class EncDecSession(PagedKVSession):
+    """Paged decoder self-attention + a per-slot encoder context (whisper).
+    ``begin_sequence`` rewrites a slot's whole context, so no leaf needs a
+    reset between occupants."""
+    backend = "encdec"
+    needs_encoder_ctx = True
+
+    def init_state(self):
+        sp = self.spec
+        state = whisper.init_session_state(self.cfg, sp.slots, sp.resolved_num_blocks(),
+                                           sp.block_size, self._dtype(), device=self.device)
+        state["block_tables"] = torch.zeros((sp.slots, sp.table_width()), dtype=torch.int32,
+                                            device=self.device)
+        return state
+
+    def prefill_chunk(self, params, state, tokens, positions, logit_cols=None):
+        return whisper.prefill_session_chunk(params, self.cfg, state, tokens,
+                                             state["block_tables"], positions, logit_cols)
+
+    def decode_step(self, params, state, tokens, positions):
+        return whisper.decode_session_step(params, self.cfg, state, tokens,
+                                           state["block_tables"], positions)
+
+    def begin_sequence(self, params, state, slot: int, enc_frames):
+        """Encode ``enc_frames`` (1, T_enc, D) on the device and write the
+        context into row ``slot`` of the state's cross K/V, in place; nothing
+        is read back."""
+        ctx = whisper.encode_ctx(params, self.cfg, enc_frames)
+        for nm in ("k", "v"):
+            state["cross"][nm][:, slot] = ctx[nm][:, 0]
+        return state
+
+
 FAMILY_BACKENDS: dict[str, tuple[str, ...]] = {
     "dense": ("paged", "ring"),
     "moe": ("paged", "ring"),
@@ -204,6 +241,7 @@ _SESSION_TYPES: dict[tuple[str, str], type[InferenceSession]] = {
     ("moe", "ring"): RingKVSession,
     ("griffin", "recurrent"): GriffinSession,
     ("rwkv", "recurrent"): RwkvSession,
+    ("encdec", "encdec"): EncDecSession,
 }
 
 
@@ -237,6 +275,9 @@ def make_session(cfg: ModelConfig, spec: SessionSpec | None = None, *,
             f"family {cfg.family!r} ({cfg.name}) with the {backend!r} backend is "
             "not ported to repro_torch yet; ported: "
             + ", ".join(f"{f}/{b}" for f, b in _SESSION_TYPES))
+    if cfg.pos_type == "learned" and spec.max_len > cfg.max_seq_len:
+        raise ValueError(f"{cfg.name} learns {cfg.max_seq_len} positions; max_len is "
+                         f"{spec.max_len}")
     canonical_cache_dtype(spec.cache_dtype)
     check_card_support(cfg, resolve_device(device), backend)
     return _SESSION_TYPES[cfg.family, backend](cfg, spec, device=device)

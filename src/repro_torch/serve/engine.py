@@ -25,6 +25,12 @@ within the policy's order.  The decode tick is schedule → dispatch →
 collect, so the async front end (``serve.frontend``) can dispatch tick N+1
 before it reads tick N.
 
+An enc-dec session (whisper) writes each request's encoder context at its
+admission: ``submit(enc_frames=)`` takes the request's (T_enc, D) frames
+(zeros when omitted), and the begin step encodes them on the device before
+the request prefills, at every admission, so a preempted request replays its
+encoder pass.
+
 Sampling is greedy (an argmax) or seeded temperature / top-k, both on the
 device for the whole batch with one host copy of the token column a tick
 (``steps.sample_tokens``: one ``torch.Generator`` on the engine's device,
@@ -51,6 +57,7 @@ import contextlib
 import time
 import warnings
 from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 import torch
@@ -71,6 +78,8 @@ class Request:
     prompt: list[int]
     max_tokens: int
     eos: int | None = None
+    # (T_enc, D) encoder frames (enc-dec families); identity, not value, matters
+    enc_frames: Any = field(default=None, compare=False, repr=False)
     deadline_s: float | None = None  # completion budget from submit (seconds)
     out_tokens: list[int] = field(default_factory=list)
     done: bool = False
@@ -206,7 +215,10 @@ class Engine:
 
     # -- public API -----------------------------------------------------------
     def submit(self, prompt: list[int], max_tokens: int = 32, eos: int | None = None,
-               deadline_s: float | None = None) -> Request:
+               enc_frames=None, deadline_s: float | None = None) -> Request:
+        """Queue a request.  ``enc_frames`` (T_enc, D), for an enc-dec
+        session, is encoded at each admission; a request without it gets
+        zeros."""
         if not prompt:
             raise ValueError("empty prompt")
         if max_tokens < 1:
@@ -219,13 +231,22 @@ class Engine:
         if len(prompt) + 1 > self.max_len:
             raise ValueError(f"prompt needs {len(prompt) + 1} positions "
                              f"> max_len {self.max_len}")
+        if enc_frames is not None:
+            want = (self.cfg.enc_len, self.cfg.d_model)
+            if not self.session.needs_encoder_ctx:
+                raise ValueError(f"enc_frames given, but {self.cfg.name} "
+                                 f"({self.cfg.family}) has no encoder")
+            if tuple(enc_frames.shape) != want:
+                raise ValueError(f"enc_frames must be {want} (T_enc, D); got "
+                                 f"{tuple(enc_frames.shape)}")
         if self.manager is not None:  # servable alone: prompt + output fit the pool
             worst = min(len(prompt) + max_tokens, self.max_len)
             need = blocks_for(worst, self.manager.block_size)
             if need > self.manager.num_blocks - 1:
                 raise ValueError(f"request needs up to {need} blocks but the pool only "
                                  f"has {self.manager.num_blocks - 1}")
-        req = Request(self._next_rid, list(prompt), max_tokens, eos, deadline_s=deadline_s,
+        req = Request(self._next_rid, list(prompt), max_tokens, eos, enc_frames=enc_frames,
+                      deadline_s=deadline_s,
                       t_submit=time.perf_counter(),
                       # analyze: allow[wall-clock] informational submit stamp; never enters duration math
                       t_submit_wall=time.time())
@@ -448,6 +469,11 @@ class Engine:
                 if not req.t_first:  # first admission, not a preempt replay
                     self._h_queue.observe(t_admit - req.t_submit)
         self._reset_slots([s for s, _ in batch])
+        if self.session.needs_encoder_ctx:  # every admission, preempt replays included
+            with self._span("repro_torch/serve/begin"):
+                for s, req in batch:
+                    self.state = steps.begin_step(self.session, self.params, self.state, s,
+                                                  req.enc_frames, self.device)
         bt = self._tables(extra={s: req.rid for s, req in batch})
         if bt is not None:
             self.state = self.session.with_tables(self.state, self._stage.copy(bt)[0])

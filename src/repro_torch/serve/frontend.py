@@ -154,12 +154,12 @@ class AsyncEngine:
 
     # -- public API -----------------------------------------------------------
     def submit(self, prompt: list[int], max_tokens: int = 32, eos: int | None = None,
-               deadline_s: float | None = None) -> RequestHandle:
+               enc_frames=None, deadline_s: float | None = None) -> RequestHandle:
         """Validate and enqueue a request and (re)start the pump.  Raises the
         engine's submit-time ``ValueError``s before any handle exists."""
         loop = asyncio.get_running_loop()  # raises outside an event loop
         req = self.engine.submit(prompt, max_tokens=max_tokens, eos=eos,
-                                 deadline_s=deadline_s)
+                                 enc_frames=enc_frames, deadline_s=deadline_s)
         handle = RequestHandle(self, req)
         self._handles[req.rid] = handle
         if self._pump_task is None or self._pump_task.done():

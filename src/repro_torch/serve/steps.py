@@ -106,6 +106,24 @@ def tokens_to_host(tok_col: torch.Tensor, host: torch.Tensor):
     return ev
 
 
+def begin_step(session, params, state, slot: int, frames, device):
+    """The begin step beside prefill and decode (enc-dec sessions): encode one
+    admitted request's (T_enc, D) frames and write its context into row
+    ``slot`` of the state.  Frames from the host are copied from pinned
+    memory with ``non_blocking`` (a tensor already on the device stays); a
+    request without frames gets zeros made on the device, as ``repro``'s
+    engine gives it.  Nothing is read back."""
+    cfg = session.cfg
+    if frames is None:
+        x = torch.zeros((cfg.enc_len, cfg.d_model), dtype=torch.float32, device=device)
+    else:
+        x = torch.as_tensor(frames, dtype=torch.float32)
+        if x.device.type == "cpu" and torch.device(device).type == "cuda":
+            x = x.pin_memory()
+        x = x.to(device, non_blocking=True)
+    return session.begin_sequence(params, state, slot, x[None])
+
+
 def chunked_prefill(prefill_chunk_fn, params, state, prompts, *, chunk: int,
                     device=None, on_chunk=None):
     """Prefill several prompts through repeated fixed-width chunk calls.

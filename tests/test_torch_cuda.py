@@ -69,7 +69,8 @@ def _close_rows(got, want, atol, rtol):
 @pytest.mark.parametrize("b", [1, 7, 130])
 def test_tt_linear_kernel(dev, modes, dtype, b):
     """bf16 takes the fused route (the operator pass and the two-half
-    contraction: 2 launches), f32 the staged one (a launch per core)."""
+    contraction: 2 launches), f32 the staged one (a launch per core); the
+    bf16 d = 3 case also runs whisper-base's three specs at its epilogues."""
     from repro_torch.core.ttd import TTSpec
     from repro_torch.kernels import tt_linear as k
     spec = TTSpec.make(0, 0, modes[2], d=len(modes[0]), in_modes=modes[0], out_modes=modes[1])
@@ -79,8 +80,24 @@ def test_tt_linear_kernel(dev, modes, dtype, b):
     x = torch.randn(b, spec.n_in, generator=g, device=dev).to(dtype)
     bias = torch.randn(spec.n_out, generator=g, device=dev)
     res = torch.randn(b, spec.n_out, generator=g, device=dev).to(dtype)
-    for kw in ({}, dict(bias=bias, activation="silu"), dict(scale=bias, residual=res),
-               dict(activation="gelu", residual=res)):
+    cases = [(spec, cores, x, kw) for kw in (
+        {}, dict(bias=bias, activation="silu"), dict(scale=bias, residual=res),
+        dict(activation="gelu", residual=res))]
+    if len(modes[0]) == 3 and dtype == torch.bfloat16:
+        # whisper-base's d = 3 specs (one-core halves) at its call sites: up
+        # with bias and GELU, attn_o and down with bias and the residual, at
+        # B 8 (a decode tick), 1500 (the encoder) and 2048 rows by b
+        rows = {1: 8, 7: 1500, 130: 2048}[b]
+        for n_in, n_out in ((512, 512), (512, 2048), (2048, 512)):
+            ws = TTSpec.make(n_in, n_out, 16, d=3)
+            wc = [(torch.randn(s, generator=g, device=dev) / math.sqrt(s[0])).to(dtype)
+                  for s in ws.core_matrix_shapes()]
+            wx = torch.randn(rows, n_in, generator=g, device=dev).to(dtype)
+            wb = torch.randn(n_out, generator=g, device=dev)
+            epi = dict(bias=wb, activation="gelu") if n_out > n_in else dict(
+                bias=wb, residual=torch.randn(rows, n_out, generator=g, device=dev).to(dtype))
+            cases.append((ws, wc, wx, epi))
+    for spec, cores, x, kw in cases:
         n0 = k.launches
         got = k.tt_linear(x, cores, spec, **kw)
         assert k.launches == n0 + (2 if dtype == torch.bfloat16 else spec.d)
@@ -108,7 +125,8 @@ def test_int4_matmul_kernel(dev, b, k_in, m, group):
     """One launch a call: B <= GEMV_MAX_B (24) takes the split-K GEMV, above
     it the wgmma GEMM (a partial token tile at 33, 49, 300, 2047); M not a
     multiple of the 128-row tile or of 16 (96, 200, 64, 1000, 37), K = 11008
-    (172 steps of 64), groups of 16, 32, 64, 128 and one group for all of K."""
+    (172 steps of 64), groups of 16, 32, 64, 128 and one group for all of K;
+    the (33, 512, 200, 64) case also runs whisper-base's biased 512 -> 512."""
     from repro_torch.core.quant import quantize_int4
     from repro_torch.kernels import int4_matmul as k
     g = torch.Generator(device=dev).manual_seed(b)
@@ -116,7 +134,17 @@ def test_int4_matmul_kernel(dev, b, k_in, m, group):
     x = torch.randn(b, k_in, generator=g, device=dev).to(torch.bfloat16)
     res = torch.randn(b, m, generator=g, device=dev).to(torch.bfloat16)
     bias = torch.randn(m, generator=g, device=dev)
-    for kw in ({}, dict(bias=bias, activation="silu"), dict(residual=res, scale=bias)):
+    cases = [(x, q, group, kw) for kw in (
+        {}, dict(bias=bias, activation="silu"), dict(residual=res, scale=bias))]
+    if (b, k_in, m, group) == (33, 512, 200, 64):
+        # whisper-base's q/k/v (512 -> 512, g128) with its bias: the decode
+        # GEMV at B 8, the GEMM at the encoder's 1500 rows and at 1536
+        wq = quantize_int4(torch.randn(512, 512, generator=g, device=dev) / math.sqrt(512), 128)
+        wb = torch.randn(512, generator=g, device=dev)
+        for rows in (8, 1500, 1536):
+            wx = torch.randn(rows, 512, generator=g, device=dev).to(torch.bfloat16)
+            cases += [(wx, wq, 128, {}), (wx, wq, 128, dict(bias=wb))]
+    for x, q, group, kw in cases:
         n0 = k.launches
         got = k.int4_matmul(x, q["qweight"], q["scales"], group, **kw)
         assert k.launches == n0 + 1
@@ -185,21 +213,26 @@ def test_paged_attention_kernels(dev, sq, window, h, hkv, dh, qdt, kvdt):
     g = torch.Generator(device=dev).manual_seed(sq * 100 + h)
     b, bs, w = 3, 16, 12
     nb = 1 + b * w
-    cache = _pool(nb, bs, hkv, dh, kvdt, dev, g)
-    bt = torch.randperm(nb - 1, generator=g, device=dev)[:b * w].reshape(b, w).to(torch.int32) + 1
-    q = torch.randn(b, sq, h, dh, generator=g, device=dev).to(qdt)
-    start = torch.tensor([0, 37, 120], device=dev)
-    qpos = (start[:, None] + torch.arange(sq, device=dev)[None]).to(torch.int32)
-    qpos[1, -1] = -1
-    qpos[2, 0] = -1
-    if sq == 1:
-        got = pa.paged_attention(q[:, 0].contiguous(), cache, bt, qpos[:, 0].contiguous())[:, None]
-    else:
-        got = pf.prefill_attention(q, qpos, cache=cache, block_tables=bt, window=window)
-    want = pa.paged_attention_plain(q.float(), {k: v for k, v in cache.items()}, bt, qpos,
-                                    window=window)
-    _close_rows(got, want, *((1e-4, 1e-4) if qdt == torch.float32 else (2.0 ** -6, 2.0 ** -6)))
-    assert not got[qpos < 0].any()
+    # at (8, 2, 64) also whisper-base's heads, H8/Hkv8/Dh64 (group 1)
+    for n_kv in (hkv, 8) if (h, hkv, dh) == (8, 2, 64) else (hkv,):
+        cache = _pool(nb, bs, n_kv, dh, kvdt, dev, g)
+        bt = torch.randperm(nb - 1, generator=g, device=dev)[:b * w].reshape(b, w).to(
+            torch.int32) + 1
+        q = torch.randn(b, sq, h, dh, generator=g, device=dev).to(qdt)
+        start = torch.tensor([0, 37, 120], device=dev)
+        qpos = (start[:, None] + torch.arange(sq, device=dev)[None]).to(torch.int32)
+        qpos[1, -1] = -1
+        qpos[2, 0] = -1
+        if sq == 1:
+            got = pa.paged_attention(q[:, 0].contiguous(), cache, bt,
+                                     qpos[:, 0].contiguous())[:, None]
+        else:
+            got = pf.prefill_attention(q, qpos, cache=cache, block_tables=bt, window=window)
+        want = pa.paged_attention_plain(q.float(), {k: v for k, v in cache.items()}, bt, qpos,
+                                        window=window)
+        _close_rows(got, want,
+                    *((1e-4, 1e-4) if qdt == torch.float32 else (2.0 ** -6, 2.0 ** -6)))
+        assert not got[qpos < 0].any()
 
 
 @pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),

@@ -20,9 +20,11 @@ from repro.configs import get_config
 from repro.serve import kv_cache as jkv
 from repro.serve.engine import Engine as JEngine
 from repro_torch.config import config_from_dict
+from repro_torch.configs import get_config as tget
 from repro_torch.convert import params_from_jax
 from repro_torch.models import sessions as tsessions
 from repro_torch.models import transformer as ttf
+from repro_torch.models import whisper as twhisper
 from repro_torch.serve import kv_cache as tkv
 from repro_torch.serve.engine import Engine as TEngine
 from repro_torch.serve.frontend import AsyncEngine
@@ -132,14 +134,21 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
                  lambda: ttf.init_paged_cache(cfg, 4, 4),
                  lambda: TEngine(cfg, s["tparams"], slots=2, max_len=32),
                  lambda: AsyncEngine(cfg, s["tparams"], slots=2, max_len=32),
-                 lambda: ttf.init_lm(cfg, device="cuda")):
+                 lambda: ttf.init_lm(cfg, device="cuda"),
+                 lambda: twhisper.init_lm(tget("whisper-base", reduced=True)),
+                 lambda: tsessions.make_session(tget("whisper-base", reduced=True), spec)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     sess = tsessions.make_session(cfg, spec, device="cpu")
     assert sess.init_state()["block_tables"].device.type == "cpu"
     assert tsessions.make_session(cfg, spec, backend="ring", device="cpu").backend == "ring"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tsessions.make_session(cfg.replace(family="encdec"), spec, device="cpu")
+    # every family/backend pair is ported; the refusals that remain name why
+    assert {(f, b) for f, bs in tsessions.FAMILY_BACKENDS.items() for b in bs} \
+        <= set(tsessions._SESSION_TYPES)
+    with pytest.raises(NotImplementedError, match="encdec"):
+        tsessions.make_session(tget("whisper-base"), spec, backend="paged", device="cpu")
+    with pytest.raises(NotImplementedError, match="pos_type"):
+        tsessions.make_session(tget("qwen2-vl-7b"), spec, backend="paged", device="cpu")
 
 
 def _imports(path: Path):

@@ -12,7 +12,7 @@ from repro_torch.serve.steps import serve_config_of
 # refused by the KV backends before any kernel limit is checked.
 FITTING_ARCHS = ("llama2-7b", "chatglm3-6b", "tinyllama-1.1b", "recurrentgemma-2b",
                  "rwkv6-7b", "granite-3-8b", "phi4-mini-3.8b", "qwen1.5-110b",
-                 "mixtral-8x22b", "kimi-k2-1t-a32b")
+                 "mixtral-8x22b", "kimi-k2-1t-a32b", "whisper-base")
 
 REFUSALS = {
     "int4_group": "int4_matmul takes K % 32 == 0 and group % 16 == 0",
