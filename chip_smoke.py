@@ -69,7 +69,19 @@ then:
       seeded Poisson requests with cancels and deadlines through
       ``traffic.drive`` with dispatch-ahead on and off (TTFT and inter-token
       percentiles, tokens/s, goodput, the schema check, JSONL traces under
-      ``chiprun_out/`` validated).
+      ``chiprun_out/`` validated), and ``[solo llama2-7b]``: 4 of its
+      requests one at a time through ``models.api.Model`` fed the Engine's
+      tokens, every step's logits held against the serving session's fed
+      the same, and each Engine token within 0.05 of max|logit| of the solo
+      path's top logit (a bf16 near-tie may flip a greedy token);
+3. the single-sequence path (``models.api.Model``): ``[solo <family>]`` for
+   recurrentgemma-2b, rwkv6-7b, whisper-base and mixtral-8x22b at full width
+   and 2 layers (a 256-token prefill and 4 decode steps, kernels against
+   ``force_plain()``), and ``[solo qwen2-vl-7b]`` at full width and depth
+   (28 layers; one 2048-token request of text, a 32 x 32 image block and
+   text with M-RoPE positions; 32 decode steps; every launch counted, the
+   prefill and a decode step profiled), whose kernel phases run at its TT
+   and int4 shapes.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  It exits
@@ -150,7 +162,13 @@ PATH_KERNELS = {
     "kimi-k2-1t-a32b": ("tt_linear", "tt_linear_grouped", "int4_matmul", "int4_matmul_f32",
                         "paged_attention", "prefill_attention"),
     "whisper-base": ("tt_linear", "int4_matmul", "paged_attention", "prefill_attention"),
+    "solo qwen2-vl-7b": ("tt_linear", "int4_matmul"),
 }
+# The single-sequence phases at full width and 2 layers: the kernels each
+# family's phase must launch besides tt_linear and int4_matmul.
+SOLO_FAMILY_KERNELS = {"recurrentgemma-2b": ("rglru_scan",), "rwkv6-7b": ("wkv_scan",),
+                       "whisper-base": (),
+                       "mixtral-8x22b": ("tt_linear_grouped", "int4_matmul_f32")}
 
 
 def counters():
@@ -197,6 +215,28 @@ def tt_row_flops(spec) -> int:
     return cost[0][d - 1]
 
 
+def mrope_positions(n_text: int, grid: tuple[int, int], n_after: int):
+    """(3, 1, S) M-RoPE position ids (numpy int32) of ``n_text`` text tokens,
+    an image block of ``grid`` (rows, cols) patches and ``n_after`` text
+    tokens, as Qwen2-VL lays them out (arXiv:2409.12191 §2.1): text at t = h =
+    w = i; patch (r, c) at (p, p + r, p + c) with p the text prefix length;
+    the text after the image resumes at the largest id + 1."""
+    import numpy as np
+    rows, cols = grid
+    t = list(range(n_text))
+    h, w = list(t), list(t)
+    for r in range(rows):
+        for c in range(cols):
+            t.append(n_text)
+            h.append(n_text + r)
+            w.append(n_text + c)
+    nxt = max(max(t), max(h), max(w)) + 1
+    for i in range(n_after):
+        for plane in (t, h, w):
+            plane.append(nxt + i)
+    return np.array([t, h, w], np.int32)[:, None]
+
+
 def kernel_events(prof):
     """The profile's device kernels and copies by name.  "Command Buffer Full"
     is the driver's record of the host waiting on a full launch queue, not
@@ -240,6 +280,7 @@ class Smoke:
         self.failures: list[str] = []
         self.phases: dict[str, list[dict]] = {k: [] for k in SOURCES}
         self.phases["moe_layer"] = []  # a model layer, not a kernel: kept out of the JSON line
+        self.served: dict[str, list[list[int]]] = {}  # path -> the Engine's tokens a request
 
     # -- helpers --------------------------------------------------------------
     @contextlib.contextmanager
@@ -1188,9 +1229,9 @@ class Smoke:
         bt = self.np.arange(1, 1 + 8 * width, dtype=self.np.int32).reshape(8, width)
         return sess, sess.with_tables(sess.init_state(), bt)
 
-    def _check_inputs(self, cfg, prompts, decode_steps):
-        """The serve geometry's prefill tiles (slots x 256-token chunks, -1 =
-        padding) and ``decode_steps`` decode steps of fixed random tokens."""
+    def _prefill_tiles(self, prompts):
+        """The serve geometry's prefill tiles: (the prompt lengths, a (tokens,
+        positions) pair of (slots, 256) a chunk, -1 = padding)."""
         torch, np = self.torch, self.np
         slots, chunk = len(prompts), 256
         lens = np.array([len(p) for p in prompts])
@@ -1200,11 +1241,18 @@ class Smoke:
         for i, p in enumerate(prompts):
             toks[i, :len(p)], pos[i, :len(p)] = p, np.arange(len(p))
         toks, pos = (torch.from_numpy(a).to(self.dev) for a in (toks, pos))
+        return lens, [(toks[:, c * chunk:(c + 1) * chunk].contiguous(),
+                       pos[:, c * chunk:(c + 1) * chunk].contiguous()) for c in range(n_chunks)]
+
+    def _check_inputs(self, cfg, prompts, decode_steps):
+        """The serve geometry's prefill tiles (:meth:`_prefill_tiles`) and
+        ``decode_steps`` decode steps of fixed random tokens."""
+        torch, np = self.torch, self.np
+        slots = len(prompts)
+        lens, chunks = self._prefill_tiles(prompts)
         dec_toks = torch.from_numpy(self.rng.integers(0, cfg.vocab_size, (decode_steps, slots))
                                     .astype(np.int32)).to(self.dev)
         dec_pos = torch.from_numpy(lens.astype(np.int32)).to(self.dev)
-        chunks = [(toks[:, c * chunk:(c + 1) * chunk].contiguous(),
-                   pos[:, c * chunk:(c + 1) * chunk].contiguous()) for c in range(n_chunks)]
         steps = [(dec_toks[i][:, None].contiguous(), dec_pos + i) for i in range(decode_steps)]
         return lens, chunks, steps
 
@@ -1407,6 +1455,7 @@ class Smoke:
         # engine and its state are freed when this phase returns
         del eng._decode_dispatch, eng._decode_collect
         counts = counters()
+        self.served[path] = [r.out_tokens for r in reqs]
         from repro_torch.kernels import tt_linear
         staged = tt_linear.staged_launches
         launches = {k: n for k, (n, _) in counts.items()}
@@ -1438,6 +1487,254 @@ class Smoke:
             print(f"[serve {path}] greedy tokens, the first 8 a request: "
                   f"{[r.out_tokens[:8] for r in reqs]}", flush=True)
         return launches
+
+    # -- the single-sequence path (models.api.Model) ------------------------------
+    def solo_generate(self, model, params, batch, max_len, n_steps, dec_positions=None,
+                      forced=None):
+        """``model.prefill`` on ``batch``, then ``n_steps`` ``decode_step``s
+        fed the greedy token (or the ``forced`` tokens, (1, 1) each), at
+        positions S, S + 1, ... (``dec_positions``: each step's M-RoPE ids).
+        Returns (the prefill's and every step's (B, V) logits, the tokens fed)
+        with no host sync."""
+        torch = self.torch
+        logits, cache = model.prefill(params, batch, cache_dtype=torch.bfloat16,
+                                      max_len=max_len)
+        out, fed = [logits], []
+        s = batch["tokens"].shape[1]
+        for i in range(n_steps):
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32) if forced is None \
+                else forced[i]
+            fed.append(tok)
+            dec = {"tokens": tok}
+            if dec_positions is not None:
+                dec["positions"] = dec_positions[i]
+            logits, cache = model.decode_step(params, cache, dec, s + i)
+            out.append(logits)
+        del cache
+        return out, fed
+
+    def solo_check(self, path, model, params, batch, max_len, n_steps, kernels, card,
+                   dec_positions=None):
+        """[solo <path>]: the main path (prefill + ``n_steps`` greedy decode
+        steps) through the kernels with every launch counter reset just
+        before and read just after, then the same calls under
+        ``force_plain()`` fed the kernel route's tokens: the prefill's and
+        the decode steps' logits are held to ``compare_logits``' criteria.
+        Each kernel of ``kernels`` must have launched, no plain version may
+        run on CUDA.  Returns (the counts, the kernel route's wall seconds)."""
+        torch = self.torch
+        from repro_torch.kernels import dispatch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        got, fed = self.solo_generate(model, params, batch, max_len, n_steps, dec_positions)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counters()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with dispatch.force_plain():
+            want, _ = self.solo_generate(model, params, batch, max_len, n_steps, dec_positions,
+                                         forced=fed)
+        launches = {k: n for k, (n, _) in counts.items()}
+        plain = {k: n for k, (_, n) in counts.items()}
+        s = batch["tokens"].shape[1]
+        geometry = f"1 sequence of {s} tokens, {n_steps} decode steps, bf16 through " \
+                   f"{model.cfg.n_layers} layers"
+        ok = self.compare_logits(f"solo {path}", got[0], want[0], f"prefill (last position; "
+                                 f"{geometry})")
+        ok &= self.compare_logits(f"solo {path}", torch.cat(got[1:]), torch.cat(want[1:]),
+                                  f"decode ({n_steps} steps; {geometry})")
+        checks = {"logits within tolerance": ok,
+                  "every kernel of the path launched": all(launches[k] > 0 for k in kernels),
+                  "no plain version on CUDA": not any(plain.values()),
+                  "tokens in vocab": all(0 <= int(t) < model.cfg.vocab_size
+                                         for t in torch.cat(fed).flatten().tolist())}
+        print(f"[solo {path}] {card}: launches={launches} plain_calls_on_cuda={plain}; "
+              f"kernel route {wall:.3f} s wall for the prefill and {n_steps} steps; peak device "
+              f"memory {peak:.2f} GiB; checks: {checks}", flush=True)
+        for what, good in checks.items():
+            if not good:
+                self.failures.append(f"solo {path}: {what}")
+        del got, want
+        torch.cuda.empty_cache()
+        return launches, wall
+
+    def profile_call(self, path, card, what, run, n):
+        """Wall and device kernel time of ``run()`` (``n`` calls) under
+        ``torch.profiler``, the device's busy share and the hand kernels'
+        share of the device time; the launches each kernel made a call."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        reset_counters()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: n_ / n for k, (n_, _) in counters().items() if n_}
+        events = kernel_events(prof)
+        device_s = sum(e.self_device_time_total for e in events) / 1e6
+        hand_s = sum(e.self_device_time_total for e in events if hand_kernel(e.key)) / 1e6
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+        print(f"[solo {path}] {card}: {what} wall {wall / n * 1e3:.2f} ms, device kernel "
+              f"time {device_s / n * 1e3:.2f} ms, device busy share {device_s / wall:.3f}; "
+              f"hand kernels {hand_s / n * 1e3:.3f} ms; launches a call {launches}; top "
+              f"kernels a call: " + "; ".join(f"{e.key[:48]} {e.self_device_time_total / n / 1e3:.3f}"
+                                             f" ms" for e in top), flush=True)
+
+    def solo_qwen(self, card):
+        """[solo qwen2-vl-7b]: qwen2-vl-7b's serving config at full width
+        and depth (28 layers of d 3584, 28 heads of 128 over 4 KV heads,
+        int4 q/k/v, TT attn_o and MLP, vocab 152064), random bf16 params from
+        the seed, through ``models.api.Model``: one request of 2048 tokens
+        (64 text, a 32 x 32 image block, 960 text) with M-RoPE positions,
+        ``prefill`` (flash_attention's blocked branch at S 2048) and 32
+        ``decode_step``s.  Returns the counts of the main path's run."""
+        torch, np = self.torch, self.np
+        from repro_torch.configs import get_config
+        from repro_torch.models import build_model
+        from repro_torch.serve.steps import serve_config_of
+        path = "solo qwen2-vl-7b"
+        cfg = serve_config_of(get_config("qwen2-vl-7b"))
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=self.dev)
+        params = model.init(SEED, device=self.dev)
+        torch.cuda.synchronize()
+        print(f"[init] qwen2-vl-7b serving config ({cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{cfg.n_heads} heads of {cfg.head_dim} over {cfg.n_kv_heads} KV heads, M-RoPE "
+              f"{cfg.mrope_sections}) random params in {time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+        pos = mrope_positions(64, (32, 32), 960)
+        s, n_steps = pos.shape[-1], 32
+        nxt = int(pos.max()) + 1
+        with self.own_generators(SEED + 2):
+            toks = torch.from_numpy(self.rng.integers(0, cfg.vocab_size, (1, s))
+                                    .astype(np.int32)).to(self.dev)
+        batch = {"tokens": toks, "positions": torch.from_numpy(pos).to(self.dev)}
+        dec_pos = [torch.full((3, 1, 1), nxt + i, dtype=torch.int32, device=self.dev)
+                   for i in range(n_steps)]
+        print(f"[{path}] input: {s} tokens, M-RoPE planes t/h/w of the image block "
+              f"{pos[:, 0, 64].tolist()} .. {pos[:, 0, 64 + 1023].tolist()}, text after it "
+              f"from {pos[:, 0, 64 + 1024].tolist()}; decode steps at {nxt} ..", flush=True)
+        counts, _ = self.solo_check("qwen2-vl-7b", model, params, batch, s + n_steps, n_steps,
+                                    PATH_KERNELS[path], card, dec_positions=dec_pos)
+        cache = {}
+
+        def prefill():
+            _, cache["c"] = model.prefill(params, batch, cache_dtype=torch.bfloat16,
+                                          max_len=s + n_steps)
+
+        def decode():
+            for i in range(8, 16):
+                model.decode_step(params, cache["c"], {"tokens": toks[:, :1],
+                                                       "positions": dec_pos[i]}, s + i)
+
+        prefill()
+        for i in range(8):  # warm the decode path
+            model.decode_step(params, cache["c"], {"tokens": toks[:, :1],
+                                                   "positions": dec_pos[i]}, s + i)
+        torch.cuda.reset_peak_memory_stats()
+        self.profile_call("qwen2-vl-7b", card, f"prefill ({s} tokens, {cfg.n_layers} layers)",
+                          prefill, 1)
+        self.profile_call("qwen2-vl-7b", card, f"decode step (ctx ~{s})", decode, 8)
+        print(f"[{path}] {card}: peak device memory over the profiled prefill and decode "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        del params, cache, model
+        torch.cuda.empty_cache()
+        return counts
+
+    def solo_family(self, arch, card):
+        """[solo <arch>]: the serving config at full width and 2 layers (2 +
+        2 for whisper-base), random params from the seed, through
+        ``models.api.Model``: a 256-token prefill (whisper-base on seeded
+        (1500, 512) frames) and 4 decode steps, kernels against
+        ``force_plain()``; the family's own kernel must launch."""
+        torch, np = self.torch, self.np
+        from repro_torch.configs import get_config
+        from repro_torch.models import build_model
+        from repro_torch.serve.steps import serve_config_of
+        cfg = serve_config_of(get_config(arch)).replace(n_layers=2)
+        if cfg.family == "encdec":
+            cfg = cfg.replace(n_enc_layers=2)
+        model = build_model(cfg, device=self.dev)
+        params = model.init(SEED, device=self.dev)
+        with self.own_generators(SEED + 3):
+            if cfg.family == "encdec":
+                self.seeded_biases(params)
+            batch = {"tokens": torch.from_numpy(self.rng.integers(0, cfg.vocab_size, (1, 256))
+                                                .astype(np.int32)).to(self.dev)}
+            if cfg.family == "encdec":
+                batch["enc_frames"] = torch.from_numpy(self.rng.standard_normal(
+                    (1, cfg.enc_len, cfg.d_model)).astype(np.float32)).to(self.dev)
+        kernels = ("tt_linear", "int4_matmul") + SOLO_FAMILY_KERNELS[arch]
+        self.solo_check(arch, model, params, batch, 256 + 4, 4, kernels, card)
+        del params, model
+        torch.cuda.empty_cache()
+
+    def solo_engine(self, cfg, params, prompts, max_len, path, card, n=4, new=32):
+        """[solo <path>]: ``n`` of the serve phase's requests one at a time
+        through ``models.api.Model``, fed the Engine's tokens for them (the
+        prefill, then ``new - 1`` decode steps), held step by step against
+        the serving session the Engine runs (the paged kernels, the serve
+        geometry, every serve prompt in its slot) fed the same tokens: every
+        step's logits by ``compare_logits``' criteria, and at every step the
+        Engine's token within 0.05 of max|logit| of the solo path's top
+        logit (the two attention routes differ, so a bf16 near-tie may flip
+        a greedy token).  Prints how many steps of each request the solo
+        path's greedy token is the Engine's."""
+        torch = self.torch
+        from repro_torch.models import build_model
+        served = self.served[path]
+        t0 = time.perf_counter()
+        lens, chunks = self._prefill_tiles(prompts)
+        sess, state = self.session(cfg, max_len)
+        ref = [None] * new
+        for tok, pos in chunks:
+            real = pos >= 0
+            lg, state = sess.prefill_chunk(params, state, tok, pos,
+                                           logit_cols=(real.sum(1) - 1).clamp(min=0))
+            ref[0] = lg if ref[0] is None else torch.where(real.any(1)[:, None], lg, ref[0])
+        dec_pos = torch.from_numpy(lens.astype(self.np.int32)).to(self.dev)
+        for j in range(new - 1):
+            tok = torch.tensor([[r[j]] for r in served], dtype=torch.int32, device=self.dev)
+            ref[j + 1], state = sess.decode_step(params, state, tok, dec_pos + j)
+        del state
+        ref = torch.stack(ref, 1)[:n]                                 # (n, new, V)
+        model = build_model(cfg, device=self.dev)
+        solo, rows = [], []
+        for i in range(n):
+            batch = {"tokens": torch.tensor([prompts[i]], dtype=torch.int32, device=self.dev)}
+            forced = [torch.tensor([[t]], dtype=torch.int32, device=self.dev)
+                      for t in served[i][:new - 1]]
+            logits, _ = self.solo_generate(model, params, batch, len(prompts[i]) + new, new - 1,
+                                           forced=forced)
+            lg = torch.cat(logits)                                    # (new, V)
+            theirs = torch.tensor(served[i][:new], device=self.dev)[:, None]
+            gap = (lg.amax(-1) - lg.gather(-1, theirs)[:, 0]) / lg.abs().amax(-1)
+            agree = (lg.argmax(-1) == theirs[:, 0]).sum().item()
+            rows.append((len(prompts[i]), agree, round(gap.max().item(), 5)))
+            solo.append(lg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ok = self.compare_logits(f"solo {path}", torch.cat(solo), ref.reshape(n * new, -1),
+                                 f"solo path against the serving session, both fed the "
+                                 f"Engine's tokens ({n} requests, the prefill and {new - 1} "
+                                 f"decode steps each, {cfg.compute_dtype} through {cfg.n_layers} layers)")
+        near = all(g <= 0.05 for _, _, g in rows)
+        if not ok:
+            self.failures.append(f"solo {path}: logits against the serving session")
+        if not near:
+            self.failures.append(f"solo {path}: an Engine token more than 0.05 of max|logit| "
+                                 f"under the solo path's top logit")
+        print(f"[solo {path}] {card}: {n} requests one at a time fed the Engine's {new} tokens "
+              f"each, with the serving session fed the same, in {wall:.2f} s; (prompt length, "
+              f"steps whose solo greedy token is the Engine's, the widest gap of an Engine "
+              f"token under the solo top logit as a share of max|logit| (tol 0.05)): {rows} "
+              f"{'ok' if near else 'FAIL'}", flush=True)
+        del ref, solo
+        torch.cuda.empty_cache()
 
     # -- the compressed path: compress, checkpoint, reload ----------------------
     def compressed_params(self, cfg, prompts, card):
@@ -2093,6 +2390,18 @@ def main() -> int:
                 s.tt_phase("whisper-base", role.replace("mlp_", ""), spec, b, epi)
         for b in (8, 1536):
             s.int4_phase(512, 512, b, bias=True)
+    # qwen2-vl-7b (the single-sequence path): its TT specs (modes 8,8,8,7 and
+    # 37,8,8,8) and its int4 q and k/v at a decode token and a 2048-token prefill
+    with s.own_generators(SEED + 7):
+        qcfg = serve_config_of(get_config("qwen2-vl-7b"))
+        for role, n_in, n_out in (("attn_o", 3584, 3584), ("mlp_gate", 3584, 18944),
+                                  ("mlp_down", 18944, 3584)):
+            for b in (1, 2048):
+                s.tt_phase("qwen2-vl-7b", role.replace("mlp_", ""),
+                           linear_spec(qcfg, role, n_in, n_out).tt, b)
+        for m in (3584, 512):
+            for b in (1, 2048):
+                s.int4_phase(3584, m, b)
     print(f"[phases] kernel phases took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     launches = {}
@@ -2172,6 +2481,8 @@ def main() -> int:
         launches.update({k: counts[k] for k in PATH_KERNELS[path] if k not in launches})
         launches[path] = counts
         s.profile(cfg, params, card, max_len, path, frames=frames)
+        if path == "llama2-7b":  # the single-sequence reference against the Engine
+            s.solo_engine(cfg, params, prompts, max_len, path, card)
         if path == "llama2-7b":  # the serving front end on the paper's main path
             t_front = time.perf_counter()
             s.frontend(cfg, params, card, max_len, path)
@@ -2181,6 +2492,12 @@ def main() -> int:
                   f"{time.perf_counter() - t_traffic:.1f} s", flush=True)
     del params
     torch.cuda.empty_cache()
+    t_solo = time.perf_counter()
+    for arch in SOLO_FAMILY_KERNELS:
+        s.solo_family(arch, card)
+    launches["solo qwen2-vl-7b"] = s.solo_qwen(card)
+    print(f"[solo] the single-sequence phases took {time.perf_counter() - t_solo:.1f} s",
+          flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -132,7 +132,10 @@ def card_limits(cfg, backend: str) -> list[str]:
     (``paged_attention.HEAD_DIMS``) and chunked-prefill kernel
     (``prefill_attention.HEAD_DIMS``), which whisper's encdec backend runs
     for its decoder's self-attention too, the ring backend's ring kernel (the
-    prefill tuple: its decode shares the decode kernel's body).
+    prefill tuple: its decode shares the decode kernel's body).  The
+    ``"solo"`` backend (``models.api.Model``'s single-sequence path) runs its
+    attention on plain ops, so only its linear, scan, embedding and MoE-expert
+    limits are checked.
     Kernels with no limit a config can cross (the RG-LRU scan; tt_linear,
     whose bf16 specs past the fused kernel's d <= 8 and ranks <= 32 take the
     staged kernel) are not listed.  int4 scales are bf16 wherever a config's
@@ -169,7 +172,7 @@ def card_limits(cfg, backend: str) -> list[str]:
                                f"compute_dtype {cfg.compute_dtype}")
         if cfg.family == "griffin":
             specs.append(griffin.rec_specs(cfg))
-    if cfg.family != "rwkv":
+    if cfg.family != "rwkv" and backend != "solo":
         if backend in ("paged", "encdec"):
             if cfg.head_dim not in _paged.HEAD_DIMS:
                 out.append(f"paged_attention (decode) takes head_dim {_paged.HEAD_DIMS}; "

@@ -1,0 +1,1 @@
+from .api import Model, build_model  # noqa: F401

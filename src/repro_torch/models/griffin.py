@@ -14,9 +14,12 @@ launch on the card) and the attention blocks over per-slot rings
 (``transformer.attn_ring``).  ``params["groups"]``
 is a list of pattern groups (the JAX tree stacks them on a leading axis),
 ``params["tail"]`` the remainder layers; the session state mirrors it.  The
-state is updated in place.  The training/full-sequence bodies (``forward``,
-``prefill``, ``decode_step``, ``*_seq``) are not ported: they are not on the
-serving path.
+state is updated in place.  The single-sequence path (``forward``,
+``prefill``, ``decode_step``, for ``models.api.Model``) runs the same
+blocks over whole sequences and over one token, its attention blocks over
+plain-op attention and ring caches (``transformer.attn_full``,
+``attn_decode``), its decode step's scan with h in f32 and the output gate
+after it, as the JAX package's ``rg_lru_step``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..config import ModelConfig
 from ..kernels import dispatch
+from ..kernels.scan_rglru import C_RGLRU
 from .modules import (
     apply_linear,
     apply_mlp,
@@ -42,15 +46,23 @@ from .modules import (
     linear_spec,
     mlp_specs,
     ring_write_index,
+    unembed,
 )
 from .transformer import (
+    _no_remat,
     _paged_rope,
+    _pos_index,
+    _ring_from_prefill,
+    _rope_tables,
+    attn_decode,
+    attn_full,
     attn_ring,
     init_block,
     logits_from_hidden,
     make_block_specs,
     new_ring,
     ring_width,
+    solo_ring,
 )
 
 # ---------------------------------------------------------------------------
@@ -324,3 +336,172 @@ def decode_session_step(params, cfg: ModelConfig, state, tokens, positions):
     inactive row).  Returns logits (B, V) f32 and the state."""
     logits, state = prefill_session_chunk(params, cfg, state, tokens, positions[:, None])
     return logits[:, 0], state
+
+
+
+# ---------------------------------------------------------------------------
+# The single-sequence path: whole sequences, prefill into per-layer state
+# and ring caches, one-token decode at a shared position
+# ---------------------------------------------------------------------------
+def head_weight(params, cfg: ModelConfig):
+    """(D, V) unembedding weight (tied or separate)."""
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["head"]["w"]
+
+
+def rec_block_seq(p, specs, cfg: ModelConfig, x, compute_dtype, return_state=False,
+                  state_dtype=None):
+    """Recurrent block over whole sequences from the zero state: the session
+    block with every step real.  Returns x, with ``return_state`` also
+    {"h": (B, W) f32, "conv": (B, cw-1, W) in ``state_dtype`` (default the
+    compute dtype)}."""
+    b, s, _ = x.shape
+    w = cfg.lru_width or cfg.d_model
+    state = {"h": torch.zeros(b, w, dtype=torch.float32, device=x.device),
+             "conv": torch.zeros(b, cfg.conv_width - 1, w, dtype=state_dtype or compute_dtype,
+                                 device=x.device)}
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s).contiguous()
+    x, state = rec_block_session(p, specs, cfg, x, state, positions, compute_dtype)
+    return (x, state) if return_state else x
+
+
+def rec_block_decode(p, specs, cfg: ModelConfig, x, state, compute_dtype):
+    """One token through a recurrent block; ``state`` {"h", "conv"} is
+    updated in place.  The gates in f32, ``dispatch.rglru_scan`` with h in
+    f32, then y = (h · gelu_tanh(g)) rounded to the compute dtype."""
+    f32 = torch.float32
+    hid = apply_norm(p["ln1"], x)
+    u = apply_linear(p["in_x"], hid, specs["in_x"], compute_dtype)
+    g = F.gelu(apply_linear(p["in_g"], hid, specs["in_g"], compute_dtype).to(f32),
+               approximate="tanh")
+    u, conv = causal_conv1d(p, u, state["conv"])
+    r = torch.sigmoid(apply_linear(p["gate_a"], u, specs["gate_a"], compute_dtype).to(f32))
+    i = torch.sigmoid(apply_linear(p["gate_x"], u, specs["gate_x"], compute_dtype).to(f32))
+    log_a = -C_RGLRU * F.softplus(p["lambda"].to(f32)) * r
+    h, h_last = dispatch.rglru_scan(log_a, i * u.to(f32), state["h"].to(f32), None,
+                                    scan_dtype=f32)
+    y = (h * g).to(compute_dtype)
+    x = apply_linear(p["out"], y, specs["out"], compute_dtype, residual=x).to(x.dtype)
+    x = apply_mlp(p["mlp"], apply_norm(p["ln2"], x), specs["mlp"], cfg, compute_dtype,
+                  residual=x).to(x.dtype)
+    state["h"].copy_(h_last)
+    state["conv"].copy_(conv)
+    return x, state
+
+
+def attn_block_seq(p, specs, cfg: ModelConfig, x, rope_cs, compute_dtype, return_cache=False,
+                   cache_len=0, cache_dtype=torch.bfloat16):
+    """Windowed attention block over whole sequences; with ``return_cache``
+    also its ring cache of ``cache_len`` entries."""
+    a, kv = attn_full(p, specs, cfg, apply_norm(p["ln1"], x), rope_cs, compute_dtype,
+                      return_kv=return_cache, residual=x)
+    x = a.to(x.dtype)
+    x = apply_mlp(p["mlp"], apply_norm(p["ln2"], x), specs.mlp_d(), cfg, compute_dtype,
+                  residual=x).to(x.dtype)
+    if not return_cache:
+        return x
+    k_c, v_c, pos_c = _ring_from_prefill(kv[0], kv[1], x.shape[1], cache_len, cache_dtype)
+    return x, {"k": k_c, "v": v_c, "pos": pos_c}
+
+
+def attn_block_decode(p, specs, cfg: ModelConfig, x, cache, rope_cs, pos, compute_dtype):
+    """One token through an attention block against its ring cache (updated
+    in place)."""
+    a, cache = attn_decode(p, specs, cfg, apply_norm(p["ln1"], x), rope_cs, cache, pos,
+                           compute_dtype, residual=x)
+    x = a.to(x.dtype)
+    x = apply_mlp(p["mlp"], apply_norm(p["ln2"], x), specs.mlp_d(), cfg, compute_dtype,
+                  residual=x).to(x.dtype)
+    return x, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, cache_dtype=torch.bfloat16, *,
+               device=None):
+    """The single-sequence state, laid out as ``init_lm``'s params: for a
+    recurrent layer {"h": (B, W) f32, "conv": (B, cw-1, W)}, for an
+    attention layer a ring cache of ``min(window, max_len)`` entries
+    (``transformer.init_cache``'s layout)."""
+    device = resolve_device(device)
+    w = cfg.lru_width or cfg.d_model
+    win = min(cfg.window or max_len, max_len)
+
+    def layer(kind):
+        if kind == "rec":
+            return {"h": torch.zeros(batch, w, dtype=torch.float32, device=device),
+                    "conv": torch.zeros(batch, cfg.conv_width - 1, w, dtype=cache_dtype,
+                                        device=device)}
+        return solo_ring(cfg, batch, win, cache_dtype, device)
+
+    n_groups, tail = pattern_plan(cfg)
+    return {"groups": [{key: layer(kind) for key, kind in zip(layer_keys(cfg), _pat(cfg))}
+                       for _ in range(n_groups)],
+            "tail": [layer(kind) for kind in tail]}
+
+
+def _embed(params, cfg: ModelConfig, tokens, compute_dtype):
+    return embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
+
+
+def forward(params, cfg: ModelConfig, tokens, positions=None, *, remat="none"):
+    """tokens (B, S) -> (hidden (B, S, D) after the final norm, aux 0)."""
+    _no_remat(remat)
+    compute_dtype = dt(cfg.compute_dtype)
+    b, s = tokens.shape
+    x = _embed(params, cfg, tokens, compute_dtype)
+    rope_cs = _rope_tables(cfg, positions, b, s, x.device)
+    rspecs, aspecs = rec_specs(cfg), make_block_specs(cfg, True)
+    for kind, p in _layers(cfg, params):
+        x = rec_block_seq(p, rspecs, cfg, x, compute_dtype) if kind == "rec" else \
+            attn_block_seq(p, aspecs, cfg, x, rope_cs, compute_dtype)
+    return apply_norm(params["final_norm"], x), torch.zeros((), dtype=torch.float32,
+                                                            device=x.device)
+
+
+def prefill(params, cfg: ModelConfig, tokens, positions=None, cache_dtype=torch.bfloat16,
+            max_len=None):
+    """Whole-prompt prefill: (the last position's logits (B, V) f32, the
+    state in :func:`init_cache`'s layout)."""
+    compute_dtype = dt(cfg.compute_dtype)
+    b, s = tokens.shape
+    max_len = max_len or s
+    win = min(cfg.window or max_len, max_len)
+    x = _embed(params, cfg, tokens, compute_dtype)
+    rope_cs = _rope_tables(cfg, positions, b, s, x.device)
+    rspecs, aspecs = rec_specs(cfg), make_block_specs(cfg, True)
+    states = []
+    for kind, p in _layers(cfg, params):
+        if kind == "rec":
+            x, st = rec_block_seq(p, rspecs, cfg, x, compute_dtype, return_state=True,
+                                  state_dtype=cache_dtype)
+        else:
+            x, st = attn_block_seq(p, aspecs, cfg, x, rope_cs, compute_dtype,
+                                   return_cache=True, cache_len=win, cache_dtype=cache_dtype)
+        states.append(st)
+    n_groups, _ = pattern_plan(cfg)
+    per = len(_pat(cfg))
+    cache = {"groups": [dict(zip(layer_keys(cfg), states[i * per:(i + 1) * per]))
+                        for i in range(n_groups)],
+             "tail": states[n_groups * per:]}
+    x = apply_norm(params["final_norm"], x[:, -1:])
+    return unembed(x, head_weight(params, cfg).T, compute_dtype)[:, 0], cache
+
+
+def decode_step(params, cfg: ModelConfig, caches, tokens, pos, positions=None):
+    """tokens (B, 1) at absolute position ``pos`` (a Python int or a device
+    tensor; the batch shares it).  Returns logits (B, V) f32 and the state,
+    updated in place."""
+    del positions  # the rotary table is pos's, as the JAX package's
+    compute_dtype = dt(cfg.compute_dtype)
+    b = tokens.shape[0]
+    x = _embed(params, cfg, tokens, compute_dtype)
+    p_idx = _pos_index(pos, x.device)
+    rope_cs = _rope_tables(cfg, p_idx, b, 1, x.device)
+    rspecs, aspecs = rec_specs(cfg), make_block_specs(cfg, True)
+    for (kind, p), (_, st) in zip(_layers(cfg, params), _layers(cfg, caches)):
+        if kind == "rec":
+            x, _ = rec_block_decode(p, rspecs, cfg, x, st, compute_dtype)
+        else:
+            x, _ = attn_block_decode(p, aspecs, cfg, x, st, rope_cs, p_idx, compute_dtype)
+    x = apply_norm(params["final_norm"], x)
+    return unembed(x, head_weight(params, cfg).T, compute_dtype)[:, 0], caches

@@ -141,14 +141,29 @@ def apply_norm(params, x, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
-def rope_angles(positions, head_dim: int, theta: float, partial: float = 1.0):
+def rope_angles(positions, head_dim: int, theta: float, partial: float = 1.0,
+                mrope_sections=None):
     """cos/sin tables for int positions (..., S), each (..., S, 1, head_dim):
     the rotated half-pairs repeat the angle twice, and the un-rotated tail of a
-    partial rotary has cos 1 and sin 0, so ``apply_rope`` is two multiplies."""
+    partial rotary has cos 1 and sin 0, so ``apply_rope`` is two multiplies.
+
+    M-RoPE (Qwen2-VL): positions (3, ..., S) hold the (t, h, w) position
+    planes and ``mrope_sections`` splits the rotary half-dim between them,
+    rotary frequency j reading the plane of its section; the tables are
+    (..., S, 1, head_dim) as above."""
     half = int(head_dim * partial) // 2
     inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                              device=positions.device) / half))
-    angle = positions.to(torch.float32)[..., None] * inv_freq
+    if mrope_sections is not None:
+        if sum(mrope_sections) != half:
+            raise ValueError(f"mrope_sections {tuple(mrope_sections)} must sum to the "
+                             f"rotary half-dim {half}")
+        pos = positions.to(torch.float32)
+        starts = [sum(mrope_sections[:i]) for i in range(len(mrope_sections))]
+        angle = torch.cat([pos[i][..., None] * inv_freq[a:a + n]
+                           for i, (a, n) in enumerate(zip(starts, mrope_sections))], dim=-1)
+    else:
+        angle = positions.to(torch.float32)[..., None] * inv_freq
     tail = head_dim - 2 * half
     ones = angle.new_ones(*angle.shape[:-1], tail)
     cos = torch.cat([torch.cos(angle), torch.cos(angle), ones], dim=-1)
@@ -304,27 +319,109 @@ def apply_mlp(params, x, specs: dict[str, LinearSpec], cfg: ModelConfig, compute
 
 
 # ---------------------------------------------------------------------------
-# Dense attention (the encoder's self-attention and cross-attention; plain
-# PyTorch ops, as the JAX package leaves them to XLA)
+# Dense and blocked attention (the single-sequence path's self-attention, the
+# encoder's and the cross-attention): plain PyTorch ops, as the JAX package
+# leaves them to XLA with no Pallas kernel behind them.  Scores and softmax
+# in f32, the probabilities rounded to v's dtype for the product with v.
 # ---------------------------------------------------------------------------
-def attention_dense(q, k, v, *, causal: bool = False, scale=None):
-    """Unblocked attention over every key: q (B, Sq, H, Dh), k/v (B, Skv,
-    Hkv, Dh) -> (B, Sq, H, Dh) in v's dtype.  Scores and softmax in f32, the
-    probabilities rounded to v's dtype for the product with v, as
-    ``repro.models.modules.attention_dense``; ``causal`` masks key j > query
-    i (positions 0..S-1 on both sides)."""
+NEG_INF = -1e30
+
+
+def _block_mask(qpos, kpos, kmask, causal: bool, window: int):
+    """(..., Sq, Skv) validity mask from absolute positions qpos (..., Sq),
+    kpos (Skv,) and an optional key mask (Skv,)."""
+    m = torch.ones(*qpos.shape, kpos.shape[0], dtype=torch.bool, device=qpos.device)
+    if causal:
+        m &= kpos <= qpos[..., None]
+    if window > 0:
+        m &= qpos[..., None] - kpos < window
+    if kmask is not None:
+        m &= kmask
+    return m
+
+
+def attention_dense(q, k, v, *, qpos=None, kpos=None, kmask=None, causal: bool = False,
+                    window: int = 0, scale=None):
+    """Unblocked attention: q (B, Sq, H, Dh), k/v (B, Skv, Hkv, Dh) -> (B, Sq,
+    H, Dh) in v's dtype, as ``repro.models.modules.attention_dense``.
+    ``qpos``/``kpos`` are the absolute positions (default 0..S-1 on each
+    side), ``kmask`` (B, Skv) or (Skv,) drops keys, ``causal`` masks key
+    positions past the query's and ``window`` > 0 those ``window`` or more
+    behind it.  With no mask at all no score is masked."""
     b, sq, h, dh = q.shape
-    hkv = k.shape[2]
+    skv, hkv = k.shape[1], k.shape[2]
     scale = scale or 1.0 / math.sqrt(dh)
     qh = q.reshape(b, sq, hkv, h // hkv, dh).permute(0, 2, 3, 1, 4).to(torch.float32)
     kh = k.permute(0, 2, 1, 3).to(torch.float32)[:, :, None]       # (B, Hkv, 1, Skv, Dh)
     s = torch.matmul(qh, kh.transpose(-1, -2)) * scale           # (B, Hkv, G, Sq, Skv)
-    if causal:
-        keep = torch.ones(sq, k.shape[1], dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, -1e30)
+    if causal or window > 0 or kmask is not None:
+        if qpos is None:
+            qpos = torch.arange(sq, device=q.device)
+        if kpos is None:
+            kpos = torch.arange(skv, device=q.device)
+        mask = _block_mask(qpos, kpos, None, causal, window)[None, None, None]
+        if kmask is not None:
+            km = kmask if kmask.ndim == 2 else kmask[None]
+            mask = mask & km[:, None, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.matmul(p, v.permute(0, 2, 1, 3)[:, :, None])       # (B, Hkv, G, Sq, Dh)
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+
+
+def flash_attention(q, k, v, *, qpos, kpos, kmask=None, causal: bool = True, window: int = 0,
+                    q_block: int = 1024, kv_block: int = 1024, scale=None):
+    """Blocked online-softmax attention, as ``repro.models.modules.
+    flash_attention``: one query block at a time, its key blocks in turn,
+    so B·H·q_block·kv_block f32 scores (and their exp and mask) live at a
+    time.  Shapes as in :func:`attention_dense` (``kmask`` (Skv,)); the
+    dense form when ``Sq * Skv <= max(q_block * kv_block, 2**21)``.  Padded
+    query rows take position -1, padded keys position 2**30 and are masked."""
+    b, sq, h, dh = q.shape
+    skv = k.shape[1]
+    if sq * skv <= max(q_block * kv_block, 1 << 21):
+        return attention_dense(q, k, v, qpos=qpos, kpos=kpos, kmask=kmask, causal=causal,
+                               window=window, scale=scale)
+    hkv = k.shape[2]
+    g = h // hkv
+    scale = scale or 1.0 / math.sqrt(dh)
+    qb, kb = min(q_block, sq), min(kv_block, skv)
+    pad_q, pad_k = (-sq) % qb, (-skv) % kb
+    if kmask is None:
+        kmask = torch.ones(skv, dtype=torch.bool, device=k.device)
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        qpos = F.pad(qpos, (0, pad_q), value=-1)
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        kpos = F.pad(kpos, (0, pad_k), value=2 ** 30)
+        kmask = F.pad(kmask, (0, pad_k), value=False)
+    nq, nk = q.shape[1] // qb, k.shape[1] // kb
+    qh = q.reshape(b, nq, qb, hkv, g, dh).permute(1, 0, 3, 4, 2, 5)   # (nq, B, Hkv, G, qb, Dh)
+    kh = k.reshape(b, nk, kb, hkv, dh).permute(1, 0, 3, 2, 4)[:, :, :, None]
+    vh = v.reshape(b, nk, kb, hkv, dh).permute(1, 0, 3, 2, 4)[:, :, :, None]
+    qp, kp, km = qpos.reshape(nq, qb), kpos.reshape(nk, kb), kmask.reshape(nk, kb)
+    out = []
+    for i in range(nq):
+        qi = qh[i].to(torch.float32)
+        m = torch.full(qi.shape[:-1], NEG_INF, dtype=torch.float32, device=q.device)
+        el = torch.zeros_like(m)                                  # (B, Hkv, G, qb)
+        acc = torch.zeros(qi.shape, dtype=torch.float32, device=q.device)
+        for j in range(nk):
+            s = torch.matmul(qi, kh[j].to(torch.float32).transpose(-1, -2)) * scale
+            s = torch.where(_block_mask(qp[i], kp[j], km[j], causal, window), s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            el = el * corr + p.sum(-1)
+            pv = torch.matmul(p.to(vh.dtype), vh[j])
+            acc = acc * corr[..., None] + pv.to(torch.float32)
+            m = m_new
+        out.append(torch.where(el[..., None] > 0, acc / el.clamp(min=1e-30)[..., None], 0.0)
+                   .to(q.dtype))
+    o = torch.stack(out).permute(1, 0, 4, 2, 3, 5).reshape(b, nq * qb, h, dh)
+    return o[:, :sq] if pad_q else o
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,9 @@ token-shift ddlerp mixing modulated by a LoRA.  The recurrence runs in
 ``kernels.dispatch.wkv_scan``; the LoRA mix/decay products and the per-head
 LayerNorm are plain torch ops (they are not Pallas kernels in the JAX
 package either).  ``params["blocks"]`` is a per-layer list (the JAX tree
-stacks them), and so is the session state.  The training/full-sequence
-bodies (``forward``, ``prefill``, ``decode_step``) are not ported: they are
-not on the serving path.
+stacks them), and so is the session state.  The single-sequence path
+(``forward``, ``prefill``, ``decode_step``, for ``models.api.Model``) runs
+the same blocks with its state given or from zeros.
 
 Positions only carry the serving liveness convention (-1 = padding step or
 inactive row): a padding step leaves the wkv state untouched and the
@@ -39,6 +39,7 @@ from .modules import (
     linear_spec,
     unembed,
 )
+from .transformer import _no_remat
 
 MIX_COMPONENTS = ("w", "k", "v", "r", "g")
 
@@ -258,6 +259,14 @@ def apply_block(p, specs, cfg: ModelConfig, x, state, compute_dtype, positions=N
 # ---------------------------------------------------------------------------
 # Session state and steps
 # ---------------------------------------------------------------------------
+def _state_dtypes(dtype) -> dict:
+    """The leaf dtypes of :func:`init_state`'s layers for a state ``dtype``."""
+    int8 = dtype == torch.int8
+    tail = torch.float32 if int8 else dtype
+    return {"wkv": torch.int8 if int8 else torch.float32, "x_tm": tail, "x_cm": tail,
+            "wkv_scale": torch.float32}
+
+
 def init_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *, device=None):
     """Per-layer list of per-slot state, every leaf with its slot axis first:
     the wkv matrices (f32; int8 with per-(slot, head) scales starting at
@@ -265,15 +274,13 @@ def init_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *, device=None
     f32 beside an int8 wkv state)."""
     device = resolve_device(device)
     h, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-    int8 = dtype == torch.int8
-    tail_dtype = torch.float32 if int8 else dtype
+    dts = _state_dtypes(dtype)
 
     def layer():
-        st = {"wkv": torch.zeros((batch, h, hd, hd), dtype=torch.int8 if int8 else torch.float32,
-                                 device=device),
-              "x_tm": torch.zeros((batch, 1, cfg.d_model), dtype=tail_dtype, device=device),
-              "x_cm": torch.zeros((batch, 1, cfg.d_model), dtype=tail_dtype, device=device)}
-        if int8:
+        st = {"wkv": torch.zeros((batch, h, hd, hd), dtype=dts["wkv"], device=device),
+              "x_tm": torch.zeros((batch, 1, cfg.d_model), dtype=dts["x_tm"], device=device),
+              "x_cm": torch.zeros((batch, 1, cfg.d_model), dtype=dts["x_cm"], device=device)}
+        if dtype == torch.int8:
             st["wkv_scale"] = torch.full((batch, h), 1e-8 / 127.0, dtype=torch.float32,
                                          device=device)
         return st
@@ -330,3 +337,61 @@ def decode_session_step(params, cfg: ModelConfig, state, tokens, positions):
     row).  Returns logits (B, V) f32 and the state."""
     logits, state = prefill_session_chunk(params, cfg, state, tokens, positions[:, None])
     return logits[:, 0], state
+
+
+
+# ---------------------------------------------------------------------------
+# The single-sequence path
+# ---------------------------------------------------------------------------
+def forward(params, cfg: ModelConfig, tokens, positions=None, *, remat="none", state=None,
+            return_state=False, masked=False):
+    """tokens (B, S) -> (hidden (B, S, D) after the final norm, aux 0), or
+    with ``return_state`` (hidden, the new state: new tensors, ``state`` is
+    left as it was).  ``state`` defaults to zeros (token-shift tails in the
+    compute dtype); ``masked`` makes ``positions`` the serving liveness mask
+    (-1 = padding step), else every step is real."""
+    _no_remat(remat)
+    compute_dtype = dt(cfg.compute_dtype)
+    x = embed_lookup(params["embed"], tokens, compute_dtype)
+    if state is None:
+        state = init_state(cfg, tokens.shape[0], compute_dtype, device=x.device)
+    pos = positions if masked else None
+    specs = rwkv_specs(cfg)
+    new_state = []
+    for p, st in zip(params["blocks"], state):
+        x, st = apply_block(p, specs, cfg, x, st, compute_dtype, positions=pos)
+        new_state.append(st)
+    x = apply_norm(params["final_norm"], x)
+    if return_state:
+        return x, new_state
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, cache_dtype=torch.bfloat16, *,
+               device=None):
+    """The O(1) state (``max_len`` is not used): :func:`init_state`."""
+    del max_len
+    return init_state(cfg, batch, cache_dtype, device=device)
+
+
+def decode_step(params, cfg: ModelConfig, state, tokens, pos, positions=None):
+    """One token: the state's float leaves up-cast to f32 for the step and
+    the new state cast back to the stored dtypes.  Returns logits (B, V)
+    f32 and the new state."""
+    del pos, positions
+    f32 = [{k: (t if t.dtype == torch.int32 else t.to(torch.float32)) for k, t in st.items()}
+           for st in state]
+    x, new_state = forward(params, cfg, tokens, state=f32, return_state=True)
+    logits = unembed(x[:, -1:], head_weight(params, cfg).T, dt(cfg.compute_dtype))[:, 0]
+    return logits, [{k: t.to(old[k].dtype) for k, t in st.items()}
+                    for st, old in zip(new_state, state)]
+
+
+def prefill(params, cfg: ModelConfig, tokens, positions=None, cache_dtype=torch.bfloat16,
+            max_len=None):
+    """Whole-prompt prefill from the zero state: (the last position's logits
+    (B, V) f32, the state cast to :func:`init_cache`'s dtypes)."""
+    x, new_state = forward(params, cfg, tokens, return_state=True)
+    logits = unembed(x[:, -1:], head_weight(params, cfg).T, dt(cfg.compute_dtype))[:, 0]
+    dts = _state_dtypes(cache_dtype)
+    return logits, [{k: t.to(dts[k]) for k, t in st.items()} for st in new_state]

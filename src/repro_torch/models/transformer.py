@@ -1,10 +1,12 @@
-"""Decoder-only transformer, paged and ring serving paths (counterpart of
-the dense and MoE families in ``repro.models.transformer``).
+"""Decoder-only transformer, the single-sequence path and the paged and ring
+serving paths (counterpart of the dense, MoE and M-RoPE families in
+``repro.models.transformer``).
 
 Layers are a per-layer list (no scan).  ``params["segments"]`` mirrors the
 JAX tree's segments — blocks ``[0, first_tt_block)`` quant-only, the rest
 TT-compressed (paper: 19 of 32 llama2 blocks) — each a list of layer dicts.
-The paged K/V pools and the per-slot rings are updated in place.  An MoE
+The paged K/V pools, the per-slot rings and the single-sequence path's
+ring caches are updated in place.  An MoE
 block (``models/moe.py``) takes ``"moe"`` in place of ``"mlp"``: its gated
 combine cannot ride one linear's epilogue, so the skip connection is added
 after it, in x's dtype.
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..config import ModelConfig
@@ -27,9 +30,11 @@ from .modules import (
     apply_mlp,
     apply_norm,
     apply_rope,
+    attention_dense,
     dt,
     embed_lookup,
     embed_spec,
+    flash_attention,
     init_embed,
     init_linear,
     init_mlp,
@@ -399,4 +404,211 @@ def decode_step_ring(params, cfg: ModelConfig, caches, tokens, positions):
     pos2 = positions[:, None].to(torch.int32).contiguous()
     rope_cs = _paged_rope(cfg, pos2)
     x, caches = _ring_stack(params, cfg, caches, x, rope_cs, pos2, compute_dtype)
+    return logits_from_hidden(params, cfg, x)[:, 0], caches
+
+
+
+# ---------------------------------------------------------------------------
+# The single-sequence path (``models.api.Model``): ``forward`` over whole
+# sequences, ``prefill`` into per-layer ring caches and ``decode_step`` one
+# token at a shared position.  Its attention is plain ops
+# (``modules.flash_attention`` / ``attention_dense``), as the JAX package's.
+# ---------------------------------------------------------------------------
+def _rope_tables(cfg: ModelConfig, positions, b: int, s: int, device):
+    """rope: positions (S,) or (B, S), default 0..S-1; mrope: (3, B, S),
+    default 0..S-1 on every plane; none: no tables."""
+    if cfg.pos_type == "rope":
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=device)
+        return rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.partial_rotary)
+    if cfg.pos_type == "mrope":
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=device).expand(3, b, s)
+        return rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.partial_rotary,
+                           mrope_sections=cfg.mrope_sections)
+    return None
+
+
+def attn_full(params, specs, cfg: ModelConfig, x, rope_cs, compute_dtype, *,
+              return_kv=False, residual=None):
+    """Causal self-attention over the whole sequence (positions 0..S-1,
+    ``cfg.window``); the skip connection fuses into the output projection's
+    epilogue.  Returns (y, (k, v) or None)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, specs, cfg, x, rope_cs, compute_dtype)
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)
+    o = flash_attention(q, k, v, qpos=pos, kpos=pos, causal=True, window=cfg.window,
+                        q_block=cfg.q_block, kv_block=cfg.kv_block)
+    o = apply_linear(params["attn"]["wo"], o.reshape(b, s, cfg.q_dim), specs.attn_d()["wo"],
+                     compute_dtype, residual=residual)
+    return o, ((k, v) if return_kv else None)
+
+
+def _pos_index(pos, device):
+    """The decode position as a (1,) int64 tensor on ``device``: a Python
+    int or a device tensor, read on the device only."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64).reshape(1)
+    return torch.full((1,), int(pos), dtype=torch.int64, device=device)
+
+
+def ring_attend(q, k, v, cache, pos, *, causal: bool, window: int = 0):
+    """Write one token's k/v (B, 1, Hkv, Dh) into a ring cache ``{"k", "v":
+    (B, W, Hkv, Dh), "pos": (W,) int32}`` (-1 = empty entry; one position
+    row shared by the batch) at entry ``pos % W`` **in place**, then attend
+    q over the cache (``attention_dense``).  ``pos`` is :func:`_pos_index`'s
+    (1,) tensor."""
+    slot = torch.remainder(pos, cache["k"].shape[1])
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slot, pos.to(torch.int32))
+    return attention_dense(q, cache["k"], cache["v"], qpos=pos, kpos=cache["pos"],
+                           kmask=cache["pos"] >= 0, causal=causal, window=window)
+
+
+def attn_decode(params, specs, cfg: ModelConfig, x, rope_cs, cache, pos, compute_dtype,
+                residual=None):
+    """One token against its ring cache (:func:`ring_attend`, in place).
+    Returns (y, cache)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, specs, cfg, x, rope_cs, compute_dtype)
+    o = ring_attend(q, k, v, cache, pos, causal=True, window=cfg.window)
+    o = apply_linear(params["attn"]["wo"], o.reshape(b, s, cfg.q_dim), specs.attn_d()["wo"],
+                     compute_dtype, residual=residual)
+    return o, cache
+
+
+def _ffn_aux(params, specs, cfg, x, compute_dtype):
+    """``ffn_block`` returning the MoE aux loss too (0 for an MLP block)."""
+    h = apply_norm(params["ln2"], x)
+    if specs.moe is not None:
+        m, aux = apply_moe(params["moe"], h, specs.moe, cfg, compute_dtype)
+        return x + m.to(x.dtype), aux
+    y = apply_mlp(params["mlp"], h, specs.mlp_d(), cfg, compute_dtype, residual=x).to(x.dtype)
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def apply_block(params, specs: BlockSpecs, cfg: ModelConfig, x, rope_cs, compute_dtype,
+                cache=None, pos=None, return_kv=False):
+    """One block: full attention (``cache`` None) or one decode token against
+    its ring cache.  Returns (x, cache, aux); with ``return_kv`` (full
+    attention) (x, the layer's (k, v), aux)."""
+    h = apply_norm(params["ln1"], x)
+    if cache is None:
+        a, cache = attn_full(params, specs, cfg, h, rope_cs, compute_dtype,
+                             return_kv=return_kv, residual=x)
+    else:
+        a, cache = attn_decode(params, specs, cfg, h, rope_cs, cache, pos, compute_dtype,
+                               residual=x)
+    x, aux = _ffn_aux(params, specs, cfg, a.to(x.dtype), compute_dtype)
+    return x, cache, aux
+
+
+def _no_remat(remat: str):
+    if remat != "none":
+        raise NotImplementedError(
+            f"remat={remat!r}: the port has no backward yet, so only remat='none' runs")
+
+
+def forward(params, cfg: ModelConfig, tokens, positions=None, *, remat="none",
+            inputs_embeds=None):
+    """tokens (B, S) -> (hidden (B, S, D) after the final norm, aux: the sum
+    of the MoE layers' aux losses, f32)."""
+    _no_remat(remat)
+    compute_dtype = dt(cfg.compute_dtype)
+    b, s = tokens.shape[:2]
+    x = inputs_embeds if inputs_embeds is not None else \
+        embed_lookup(params["embed"], tokens, compute_dtype, cfg)
+    rope_cs = _rope_tables(cfg, positions, b, s, x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg_params, (_, ttd_on) in zip(params["segments"], segment_plan(cfg)):
+        specs = make_block_specs(cfg, ttd_on)
+        for layer_params in seg_params:
+            x, _, aux = apply_block(layer_params, specs, cfg, x, rope_cs, compute_dtype)
+            aux_total = aux_total + aux
+    return apply_norm(params["final_norm"], x), aux_total
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, cache_dtype=torch.bfloat16, *,
+               device=None):
+    """Per-segment lists of per-layer ring caches of ``window`` entries (the
+    whole ``max_len`` without a window): k/v (B, W, Hkv, Dh), pos (W,) = -1."""
+    device = resolve_device(device)
+    w = min(cfg.window, max_len) if cfg.window else max_len
+    return [[solo_ring(cfg, batch, w, cache_dtype, device) for _ in range(n)]
+            for n, _ in segment_plan(cfg)]
+
+
+def solo_ring(cfg: ModelConfig, batch: int, w: int, cache_dtype, device):
+    """One layer's empty ring cache: k/v (B, w, Hkv, Dh) zeros, pos (w,) = -1."""
+    kv = (batch, w, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(kv, dtype=cache_dtype, device=device),
+            "v": torch.zeros(kv, dtype=cache_dtype, device=device),
+            "pos": torch.full((w,), -1, dtype=torch.int32, device=device)}
+
+
+def _ring_from_prefill(k, v, s: int, w: int, cache_dtype):
+    """Pack the last ``w`` prefilled K/V (B, S, Hkv, Dh) into ring layout
+    (position p at entry p % w).  Returns (k, v, pos (w,))."""
+    b, _, hkv, dh = k.shape
+    dev = k.device
+    if s <= w:
+        pad = (0, 0, 0, 0, 0, w - s)
+        pos = torch.cat([torch.arange(s, dtype=torch.int32, device=dev),
+                         torch.full((w - s,), -1, dtype=torch.int32, device=dev)])
+        return (F.pad(k, pad).to(cache_dtype), F.pad(v, pad).to(cache_dtype), pos)
+    tail_pos = torch.arange(s - w, s, dtype=torch.int32, device=dev)
+    slots = (tail_pos % w).to(torch.int64)
+    k_c = torch.zeros(b, w, hkv, dh, dtype=cache_dtype, device=dev)
+    v_c = torch.zeros_like(k_c)
+    k_c[:, slots] = k[:, -w:].to(cache_dtype)
+    v_c[:, slots] = v[:, -w:].to(cache_dtype)
+    pos = torch.zeros(w, dtype=torch.int32, device=dev)
+    pos[slots] = tail_pos
+    return k_c, v_c, pos
+
+
+def prefill(params, cfg: ModelConfig, tokens, positions=None, cache_dtype=torch.bfloat16,
+            max_len: int | None = None):
+    """Whole-prompt prefill: tokens (B, S) -> (the last position's logits
+    (B, V) f32, ring caches filled to S, as :func:`init_cache` lays them
+    out).  The MoE aux loss is dropped."""
+    compute_dtype = dt(cfg.compute_dtype)
+    b, s = tokens.shape
+    max_len = max_len or s
+    w = min(cfg.window, max_len) if cfg.window else max_len
+    x = embed_lookup(params["embed"], tokens, compute_dtype, cfg)
+    rope_cs = _rope_tables(cfg, positions, b, s, x.device)
+    caches = []
+    for seg_params, (_, ttd_on) in zip(params["segments"], segment_plan(cfg)):
+        specs = make_block_specs(cfg, ttd_on)
+        seg = []
+        for lp in seg_params:
+            x, (k, v), _ = apply_block(lp, specs, cfg, x, rope_cs, compute_dtype,
+                                       return_kv=True)
+            k_c, v_c, pos_c = _ring_from_prefill(k, v, s, w, cache_dtype)
+            seg.append({"k": k_c, "v": v_c, "pos": pos_c})
+        caches.append(seg)
+    x = apply_norm(params["final_norm"], x[:, -1:])
+    return logits_from_hidden(params, cfg, x)[:, 0], caches
+
+
+def decode_step(params, cfg: ModelConfig, caches, tokens, pos, positions=None):
+    """tokens (B, 1) at absolute position ``pos`` (a Python int or a device
+    tensor; the batch shares it); ``positions``: rope (B, 1), M-RoPE (3, B,
+    1).  Returns logits (B, V) f32 and the caches, updated in place.  Under
+    M-RoPE without ``positions`` the rotary table is position 0's, as the
+    JAX package's."""
+    compute_dtype = dt(cfg.compute_dtype)
+    b = tokens.shape[0]
+    x = embed_lookup(params["embed"], tokens, compute_dtype, cfg)
+    p = _pos_index(pos, x.device)
+    rope_pos = p if positions is None and cfg.pos_type != "mrope" else positions
+    rope_cs = _rope_tables(cfg, rope_pos, b, 1, x.device)
+    for seg_params, seg_cache, (_, ttd_on) in zip(params["segments"], caches,
+                                                  segment_plan(cfg)):
+        specs = make_block_specs(cfg, ttd_on)
+        for lp, lc in zip(seg_params, seg_cache):
+            x, _, _ = apply_block(lp, specs, cfg, x, rope_cs, compute_dtype, cache=lc, pos=p)
+    x = apply_norm(params["final_norm"], x)
     return logits_from_hidden(params, cfg, x)[:, 0], caches

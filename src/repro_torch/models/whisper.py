@@ -8,9 +8,12 @@ the plain GELU MLP; TT on attn-O and the MLP linears of both stacks.
 ``enc_blocks`` and ``dec_blocks`` are per-layer lists.  The encoder's
 self-attention and the cross-attention are plain PyTorch ops in f32
 (``modules.attention_dense``; the reference leaves them to XLA, with no
-Pallas kernel behind them); the decoder's self-attention runs the paged
-decode and chunked-prefill kernels.  The paged pools and the encoder
-context are updated in place.
+Pallas kernel behind them); the serving decoder's self-attention runs the
+paged decode and chunked-prefill kernels.  The paged pools and the encoder
+context are updated in place.  The single-sequence path (``forward``,
+``prefill``, ``decode_step``, for ``models.api.Model``) runs the decoder's
+self-attention on plain ops too, over a ring cache a layer, with each
+layer's cross K/V computed once at its prefill.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from .modules import (
     attention_dense,
     dt,
     embed_lookup,
+    flash_attention,
     init_embed,
     init_linear,
     init_mlp,
@@ -38,6 +42,7 @@ from .modules import (
     paged_write_index,
     unembed,
 )
+from .transformer import _no_remat, _pos_index, _ring_from_prefill, ring_attend, solo_ring
 
 
 # ---------------------------------------------------------------------------
@@ -249,3 +254,151 @@ def decode_session_step(params, cfg: ModelConfig, state, tokens, block_tables, p
     x = _embed_positions(params, cfg, tokens, pos2, compute_dtype)
     x = _session_stack(params, cfg, state, x, block_tables, pos2, compute_dtype)
     return unembed(x, params["embed"]["table"], compute_dtype)[:, 0], state
+
+
+
+# ---------------------------------------------------------------------------
+# The single-sequence path
+# ---------------------------------------------------------------------------
+def _mha(params, specs, cfg: ModelConfig, xq, xkv, *, causal, compute_dtype, cache=None,
+         pos=None, q_block=1024, kv_block=1024, residual=None):
+    """Multi-head attention, self (``xkv`` is ``xq``) or cross, as
+    ``repro.models.whisper._mha``: with a ``cache`` and no ``xkv``, one
+    query against the fixed cross K/V the cache holds; with a ``cache`` and
+    ``xkv``, one decode token through the self-attention ring cache
+    (``transformer.ring_attend``, in place; ``pos``: ``_pos_index``'s (1,)
+    tensor); with neither, whole sequences through ``flash_attention``,
+    returning their (k, v).  The skip connection fuses into the output
+    projection's epilogue.  Returns (y, cache or (k, v))."""
+    q = _heads(cfg, apply_linear(params["wq"], xq, specs["wq"], compute_dtype))
+    if cache is not None and xkv is None:
+        kpos = cache["pos"]
+        qpos = pos if pos is not None else torch.arange(q.shape[1], device=q.device)
+        o = attention_dense(q, cache["k"], cache["v"], qpos=qpos, kpos=kpos, kmask=kpos >= 0,
+                            causal=False)
+        new_cache = cache
+    else:
+        k = _heads(cfg, apply_linear(params["wk"], xkv, specs["wk"], compute_dtype))
+        v = _heads(cfg, apply_linear(params["wv"], xkv, specs["wv"], compute_dtype))
+        if cache is not None:
+            o = ring_attend(q, k, v, cache, pos, causal=causal)
+            new_cache = cache
+        else:
+            qpos = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+            kpos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+            o = flash_attention(q, k, v, qpos=qpos, kpos=kpos, causal=causal,
+                                q_block=q_block, kv_block=kv_block)
+            new_cache = (k, v)
+    b, s = o.shape[:2]
+    y = apply_linear(params["wo"], o.reshape(b, s, cfg.q_dim), specs["wo"], compute_dtype,
+                     residual=residual)
+    return y, new_cache
+
+
+def decode_stack(params, cfg: ModelConfig, tokens, enc_out, compute_dtype, remat="none",
+                 return_kv=False):
+    """The decoder over whole sequences against ``enc_out`` (B, T_enc, D):
+    causal self-attention, cross-attention, MLP; the final norm.  With
+    ``return_kv`` also each layer's ((self k, v), (cross k, v))."""
+    _no_remat(remat)
+    aspecs, mspecs = attn_specs(cfg), mlp_specs(cfg, True)
+    x = embed_lookup(params["embed"], tokens, compute_dtype)
+    x = x + params["dec_pos"][:tokens.shape[1]].to(compute_dtype)
+    kvs = []
+    for p in params["dec_blocks"]:
+        h = apply_norm(p["ln1"], x)
+        a, kv = _mha(p["attn"], aspecs, cfg, h, h, causal=True, compute_dtype=compute_dtype,
+                     q_block=cfg.q_block, kv_block=cfg.kv_block, residual=x)
+        y = a.to(x.dtype)
+        a, xkv = _mha(p["xattn"], aspecs, cfg, apply_norm(p["ln_x"], y), enc_out, causal=False,
+                      compute_dtype=compute_dtype, residual=y)
+        y = a.to(y.dtype)
+        x = apply_mlp(p["mlp"], apply_norm(p["ln2"], y), mspecs, cfg, compute_dtype,
+                      residual=y).to(y.dtype)
+        if return_kv:
+            kvs.append((kv, xkv))
+    x = apply_norm(params["final_norm"], x)
+    return (x, kvs) if return_kv else x
+
+
+def _encoded(params, cfg: ModelConfig, b: int, enc_frames, compute_dtype, device):
+    """The encoder's output on the given frames, or on zeros (B, T_enc, D)
+    for an LM-style call."""
+    if enc_frames is None:
+        enc_frames = torch.zeros(b, cfg.enc_len, cfg.d_model, dtype=compute_dtype,
+                                 device=device)
+    return encode(params, cfg, enc_frames, compute_dtype)
+
+
+def forward(params, cfg: ModelConfig, tokens, positions=None, *, remat="none",
+            enc_frames=None):
+    """tokens (B, S) and frames (B, T_enc, D) (zeros when None) -> (the
+    decoder's hidden (B, S, D), aux 0)."""
+    compute_dtype = dt(cfg.compute_dtype)
+    enc_out = _encoded(params, cfg, tokens.shape[0], enc_frames, compute_dtype, tokens.device)
+    x = decode_stack(params, cfg, tokens, enc_out, compute_dtype, remat)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def head_weight(params, cfg: ModelConfig):
+    """(D, V): the head is tied to the embedding."""
+    return params["embed"]["table"].T
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, cache_dtype=torch.bfloat16, *,
+               device=None):
+    """A decoder layer each: {"self": a ring cache of ``max_len`` entries
+    (``transformer.solo_ring``); "cross": k/v (B, T_enc, H, Dh), pos
+    (T_enc,)}."""
+    device = resolve_device(device)
+    cross = (batch, cfg.enc_len, cfg.n_heads, cfg.head_dim)
+    return {"self": [solo_ring(cfg, batch, max_len, cache_dtype, device)
+                     for _ in range(cfg.n_layers)],
+            "cross": [{"k": torch.zeros(cross, dtype=cache_dtype, device=device),
+                       "v": torch.zeros(cross, dtype=cache_dtype, device=device),
+                       "pos": torch.zeros(cfg.enc_len, dtype=torch.int32, device=device)}
+                      for _ in range(cfg.n_layers)]}
+
+
+def prefill(params, cfg: ModelConfig, tokens, positions=None, cache_dtype=torch.bfloat16,
+            max_len=None, enc_frames=None):
+    """Encode the frames (zeros when None), run the decoder over the prompt
+    and store each layer's self K/V (ring layout) and its cross K/V once.
+    Returns (the last position's logits (B, V) f32, the cache)."""
+    compute_dtype = dt(cfg.compute_dtype)
+    b, s = tokens.shape
+    max_len = max_len or s
+    enc_out = _encoded(params, cfg, b, enc_frames, compute_dtype, tokens.device)
+    x, kvs = decode_stack(params, cfg, tokens, enc_out, compute_dtype, return_kv=True)
+    enc_pos = torch.arange(cfg.enc_len, dtype=torch.int32, device=x.device)
+    cache = {"self": [], "cross": []}
+    for (k, v), (xk, xv) in kvs:
+        k_c, v_c, pos_c = _ring_from_prefill(k, v, s, max_len, cache_dtype)
+        cache["self"].append({"k": k_c, "v": v_c, "pos": pos_c})
+        cache["cross"].append({"k": xk.to(cache_dtype), "v": xv.to(cache_dtype),
+                               "pos": enc_pos.clone()})
+    return unembed(x[:, -1:], params["embed"]["table"], compute_dtype)[:, 0], cache
+
+
+def decode_step(params, cfg: ModelConfig, caches, tokens, pos, positions=None):
+    """tokens (B, 1) at decoder position ``pos`` (a Python int or a device
+    tensor; the batch shares it).  Returns logits (B, V) f32 and the cache,
+    its self-attention rings updated in place."""
+    del positions
+    compute_dtype = dt(cfg.compute_dtype)
+    aspecs, mspecs = attn_specs(cfg), mlp_specs(cfg, True)
+    x = embed_lookup(params["embed"], tokens, compute_dtype)
+    p_idx = _pos_index(pos, x.device)
+    x = x + params["dec_pos"].index_select(0, p_idx).to(compute_dtype)
+    for p, c_self, c_cross in zip(params["dec_blocks"], caches["self"], caches["cross"]):
+        h = apply_norm(p["ln1"], x)
+        a, _ = _mha(p["attn"], aspecs, cfg, h, h, causal=True, compute_dtype=compute_dtype,
+                    cache=c_self, pos=p_idx, residual=x)
+        y = a.to(x.dtype)
+        a, _ = _mha(p["xattn"], aspecs, cfg, apply_norm(p["ln_x"], y), None, causal=False,
+                    compute_dtype=compute_dtype, cache=c_cross, pos=p_idx, residual=y)
+        y = a.to(y.dtype)
+        x = apply_mlp(p["mlp"], apply_norm(p["ln2"], y), mspecs, cfg, compute_dtype,
+                      residual=y).to(y.dtype)
+    x = apply_norm(params["final_norm"], x)
+    return unembed(x, params["embed"]["table"], compute_dtype)[:, 0], caches

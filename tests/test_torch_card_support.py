@@ -12,7 +12,13 @@ to the fused kernel.
 """
 import pytest
 import torch
-from torch_card_cases import FITTING_ARCHS, REFUSALS, refused_config
+from torch_card_cases import (
+    FITTING_ARCHS,
+    REFUSALS,
+    SOLO_FITTING_ARCHS,
+    SOLO_REFUSALS,
+    refused_config,
+)
 
 from repro_torch.configs import get_config
 from repro_torch.core.ttd import TTSpec
@@ -37,6 +43,26 @@ def test_refused_on_a_cuda_device_naming_the_limit(case):
 def test_shipped_configs_fit_the_kernels(arch):
     for cfg in (get_config(arch), serve_config_of(get_config(arch))):
         assert dispatch.card_limits(cfg, default_backend(cfg)) == []
+
+
+def test_solo_backend_refuses_past_linear_scan_and_expert_limits():
+    """The single-sequence path's backend ("solo"), handed a CUDA device
+    without a card, refuses each config past a linear, scan or expert limit,
+    naming it, and passes every shipped config, qwen2-vl-7b's M-RoPE and
+    head dims no attention kernel takes among them (its attention is plain
+    ops)."""
+    for case in SOLO_REFUSALS:
+        cfg, _, limit = refused_config(case)
+        with pytest.raises(ValueError, match="cannot be served on the card") as e:
+            dispatch.check_card_support(cfg, CUDA, "solo")
+        assert limit in str(e.value), case
+    for case in sorted(set(REFUSALS) - set(SOLO_REFUSALS)):  # attention head dims
+        cfg, _, _ = refused_config(case)
+        assert dispatch.card_limits(cfg, "solo") == [], case
+    for arch in SOLO_FITTING_ARCHS:
+        for cfg in (get_config(arch), serve_config_of(get_config(arch))):
+            assert dispatch.card_limits(cfg, "solo") == [], arch
+            dispatch.check_card_support(cfg, CUDA, "solo")
 
 
 def test_f32_activations_fit_the_int4_kernel():

@@ -15,6 +15,7 @@ and atol = rtol = 2^-6 (2-4 bf16 ulps of the row max and of the element) for
 bf16: the prefill kernel rounds P, and the K and V it dequantizes from int8
 pools, to bf16 for its mma products.
 """
+import contextlib
 import math
 import re
 import shutil
@@ -1016,8 +1017,22 @@ def test_apply_moe_full_width_layer(dev, arch, t):
 def test_moe_sessions_on_card(dev):
     """mixtral-8x22b's serving config is accepted on the card (the ring
     backend), and so is kimi-k2-1t-a32b's (the paged backend: its head_dim
-    112 is one the attention kernels take)."""
+    112 is one the attention kernels take).  The single-sequence path
+    (``models.api.Model``) takes qwen2-vl-7b's serving config on the card
+    (the solo backend), and on every family at reduced width (int4 group 32)
+    its prefill and three decode steps through the kernels hold the same
+    calls under ``force_plain()`` at 1e-3 of max|want| in f32 (the MoE
+    configs in bf16 at 2e-2: the grouped tt_linear takes bf16 activations).
+    Its ``flash_attention`` at a long context (qwen2-vl-7b's 28 heads of 128
+    over 4 KV heads, 32768 tokens, causal, bf16) keeps one (q_block,
+    kv_block) tile of scores live: the call's peak stays under 2 GiB above
+    its inputs (a key block's scores for every query block at once would be
+    3.5 GiB), and 64 of its rows hold ``attention_dense`` on the same rows
+    at atol = rtol = 2^-6."""
+    from repro_torch.config import QuantConfig
     from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import build_model
     from repro_torch.models.sessions import SessionSpec, make_session
     from repro_torch.serve.steps import serve_config_of
     spec = SessionSpec(slots=1, max_len=64, cache_dtype="bfloat16")
@@ -1025,6 +1040,54 @@ def test_moe_sessions_on_card(dev):
     assert sess.backend == "ring"
     sess = make_session(serve_config_of(get_config("kimi-k2-1t-a32b")), spec, device=dev)
     assert sess.backend == "paged"
+    qwen = serve_config_of(get_config("qwen2-vl-7b"))
+    dispatch.check_card_support(qwen, dev, "solo")
+    build_model(qwen, device=dev)
+    g = np.random.default_rng(0)
+    for arch in ("tinyllama-1.1b", "mixtral-8x22b", "kimi-k2-1t-a32b", "recurrentgemma-2b",
+                 "rwkv6-7b", "whisper-base", "chatglm3-6b", "qwen2-vl-7b"):
+        cfg = get_config(arch, reduced=True)
+        cdt = "bfloat16" if cfg.family == "moe" else "float32"
+        cfg = cfg.replace(compute_dtype=cdt, param_dtype="float32",
+                          quant=QuantConfig(enabled=True, bits=4, group_size=32))
+        model = build_model(cfg, device=dev)
+        params = model.init(0, device=dev)
+        s = 40
+        batch = {"tokens": torch.from_numpy(g.integers(0, cfg.vocab_size, (1, s))
+                                            .astype(np.int32)).to(dev)}
+        if cfg.pos_type == "mrope":
+            batch["positions"] = torch.arange(s, device=dev).expand(3, 1, s).contiguous()
+        if cfg.family == "encdec":
+            batch["enc_frames"] = torch.randn(1, cfg.enc_len, cfg.d_model, device=dev)
+        outs = []
+        for plain in (False, True):
+            with dispatch.force_plain() if plain else contextlib.nullcontext():
+                logits, cache = model.prefill(params, batch, cache_dtype=torch.float32,
+                                              max_len=s + 3)
+                rows = [logits]
+                for t in range(3):
+                    dec = {"tokens": batch["tokens"][:, t:t + 1]}
+                    if cfg.pos_type == "mrope":
+                        dec["positions"] = torch.full((3, 1, 1), s + t, device=dev)
+                    logits, cache = model.decode_step(params, cache, dec, s + t)
+                    rows.append(logits)
+            outs.append(torch.cat(rows))
+        _close(outs[0], outs[1], 2e-2 if cdt == "bfloat16" else 1e-3)
+    from repro_torch.models.modules import attention_dense, flash_attention
+    n = 32768
+    q = torch.randn(1, n, 28, 128, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(1, n, 4, 128, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    o = flash_attention(q, k, v, qpos=pos, kpos=pos, causal=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < 2 * 2**30, f"flash_attention at {n} tokens peaked {peak / 2**30:.2f} GiB"
+    rows = torch.from_numpy(np.sort(g.choice(n, 64, replace=False))).to(dev)
+    want = attention_dense(q[:, rows], k, v, qpos=pos[rows], kpos=pos, causal=True)
+    _close_rows(o[:, rows], want, 2.0 ** -6, 2.0 ** -6)
 
 
 # ---------------------------------------------------------------------------

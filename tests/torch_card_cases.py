@@ -13,6 +13,13 @@ from repro_torch.serve.steps import serve_config_of
 FITTING_ARCHS = ("llama2-7b", "chatglm3-6b", "tinyllama-1.1b", "recurrentgemma-2b",
                  "rwkv6-7b", "granite-3-8b", "phi4-mini-3.8b", "qwen1.5-110b",
                  "mixtral-8x22b", "kimi-k2-1t-a32b", "whisper-base")
+# The configs the single-sequence path (``models.api.Model``, the "solo"
+# backend: attention on plain ops) takes on the card: every one, qwen2-vl-7b
+# among them.
+SOLO_FITTING_ARCHS = FITTING_ARCHS + ("qwen2-vl-7b",)
+# The refusals the solo backend keeps: those of a linear, a scan or the MoE
+# experts, not of an attention kernel.
+SOLO_REFUSALS = ("int4_group", "wkv_head_dim", "moe_int4_experts", "moe_dense_experts")
 
 REFUSALS = {
     "int4_group": "int4_matmul takes K % 32 == 0 and group % 16 == 0",
