@@ -81,7 +81,23 @@ then:
    (28 layers; one 2048-token request of text, a 32 x 32 image block and
    text with M-RoPE positions; 32 decode steps; every launch counted, the
    prefill and a decode step profiled), whose kernel phases run at its TT
-   and int4 shapes.
+   and int4 shapes;
+4. training: ``[tt_linear_bwd]`` holds the tt_linear backward at
+   tinyllama-1.1b's three specs (B 2048 and 16384 on the fused route, 2048
+   on the staged one) against autograd of the plain version — dx through
+   the kernel on the transposed train, timed with its bound and
+   ``torch.matmul(dz, Wᵀ)``, the cores' GEMMs, the plain autograd;
+   ``[train tinyllama-1.1b]`` trains the published config at full width
+   and depth (22 layers; batch 8 x 2048, remat "full", AdamW): step 0's
+   loss and every gradient leaf against ``force_plain()``, 4 steps through
+   the ``Trainer`` with tt_linear's forward, recompute and backward
+   launches counted (no plain version on the card), a forced
+   ``AsyncCheckpointer`` save restored bitwise, one step profiled;
+   ``[train remat]`` (2 layers) runs "none", "dots" and "full" on one batch
+   (equal grads, peaks none > dots > full, forward launches F, F, 2F);
+   ``[train trainer]`` (2 layers) 30 steps at lr 3e-3 with a fault injected
+   at step 12 (one restart from the async checkpoint, the loss falling by
+   0.2 or more).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  It exits
@@ -116,6 +132,22 @@ SEED = 0
 # size of the values a row averages, which the row's max reflects: with the
 # atol at one ulp (2^-8) the int8 prefill phases reached 1.4 of it.
 ATTN_ATOL, ATTN_RTOL = 2.0 ** -6, 2.0 ** -6
+# [train tinyllama-1.1b], step 0, hand kernels (g_k) against force_plain()
+# (g_p) and the plain versions computing in f32 (g_f32), each gradient leaf:
+# |g_k - g_p| / |g_p| <= TRAIN_GRAD_TOL, no looser than 0.05; the readings
+# sit near it (PERF.md §6, training: worst 0.04956,
+# median 0.0385), since both routes round activations to bf16, in different
+# places, through 22 random-weight layers (g_k and g_p are each 5.3e-2 worst,
+# 4.2e-2 median from g_f32).  So each leaf's |g_k - g_p| is also held to
+# TRAIN_GRAD_RATIO x its |g_p - g_f32|: two independent roundings of equal
+# size give sqrt(2), and a kernel fault adds on top.  The losses agree within
+# TRAIN_LOSS_TOL (measured: 7e-5), and step 0's loss lies within
+# TRAIN_INIT_LOSS_TOL of ln V + 1/2: the init's logits have unit variance
+# (the final RMSNorm, a head of std 1/sqrt(D)), so E[lse] ~ ln V + 1/2.
+TRAIN_GRAD_TOL = 0.05
+TRAIN_GRAD_RATIO = 1.5
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_INIT_LOSS_TOL = 0.05
 
 SOURCES = {
     "tt_linear": ("src/repro_torch/csrc/tt_linear.cu", "src/repro/kernels/tt_linear.py:91"),
@@ -134,7 +166,12 @@ SOURCES = {
                           "src/repro/models/moe.py:91)"),
     "int4_matmul_f32": ("src/repro_torch/csrc/int4_matmul.cu",
                         "src/repro/kernels/int4_matmul.py:57 (f32 activations)"),
+    "tt_linear_bwd": ("src/repro_torch/csrc/tt_linear.cu",
+                      "src/repro/kernels/tt_linear.py:91 (its backward: repro differentiates "
+                      "the ref contraction with XLA's autodiff, no Pallas backward)"),
 }
+# the kernels line's names where they differ from the phase keys
+DISPLAY_NAMES = {"tt_linear_bwd": "tt_linear backward (dx on the transposed train)"}
 # kernel -> (wrapper module, its launch counter, its plain-on-CUDA counter)
 COUNTERS = {
     "tt_linear": ("tt_linear", "launches", "plain_cuda_calls"),
@@ -147,6 +184,7 @@ COUNTERS = {
     "wkv_scan": ("scan_wkv", "launches", "plain_cuda_calls"),
     "tt_linear_grouped": ("tt_linear", "grouped_launches", "plain_cuda_calls"),
     "int4_matmul_f32": ("int4_matmul", "f32_launches", "plain_cuda_calls"),
+    "tt_linear_bwd": ("tt_linear", "bwd_launches", "plain_cuda_calls"),
 }
 # the kernels each serving path must launch
 PATH_KERNELS = {
@@ -163,6 +201,7 @@ PATH_KERNELS = {
                         "paged_attention", "prefill_attention"),
     "whisper-base": ("tt_linear", "int4_matmul", "paged_attention", "prefill_attention"),
     "solo qwen2-vl-7b": ("tt_linear", "int4_matmul"),
+    "train tinyllama-1.1b": ("tt_linear", "tt_linear_bwd"),
 }
 # The single-sequence phases at full width and 2 layers: the kernels each
 # family's phase must launch besides tt_linear and int4_matmul.
@@ -187,7 +226,8 @@ def reset_counters():
         m = importlib.import_module(f"repro_torch.kernels.{mod}")
         setattr(m, launch, 0)
         setattr(m, plain, 0)
-    importlib.import_module("repro_torch.kernels.tt_linear").staged_launches = 0
+    tt = importlib.import_module("repro_torch.kernels.tt_linear")
+    tt.staged_launches = tt.recompute_launches = 0
 
 
 def sm_clock() -> str:
@@ -240,8 +280,13 @@ def mrope_positions(n_text: int, grid: tuple[int, int], n_after: int):
 def kernel_events(prof):
     """The profile's device kernels and copies by name.  "Command Buffer Full"
     is the driver's record of the host waiting on a full launch queue, not
-    device work: it once read 56 ms of a chunk."""
+    device work: it once read 56 ms of a chunk.  Host-side ranges (an
+    autograd node such as ``GeneratedBackwardFor_repro_torch_tt_linear``)
+    carry as their own device time the kernels launched inside them outside
+    any aten op, which are listed themselves: they are dropped."""
+    from torch.autograd import DeviceType
     return [e for e in prof.key_averages() if e.device_time_total > 0
+            and getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CPU
             and not e.key.startswith(("aten::", "cuda", "Command Buffer Full"))]
 
 
@@ -2259,6 +2304,380 @@ class Smoke:
             self.failures.append(f"traffic {path}: schema: {e}")
 
 
+    # -- training: the tt_linear backward and tinyllama-1.1b -------------------
+    def tt_bwd_phase(self, role, spec, b, xdt):
+        """[tt_linear_bwd]: the backward's dx (the hand kernel on the
+        transposed train; its plain version is ``tt_linear_ref`` on that
+        train) and the cores' GEMMs (``core_grads``) against autograd of the
+        plain version, at a tinyllama-1.1b spec and ``b`` rows, f32 cores:
+        bf16 x and dz take the fused route (2e-2 of max|plain|), f32 the
+        staged one (1e-4).  Also times the plain forward + autograd
+        backward and the library call dz @ Wᵀ on the reconstructed W."""
+        torch = self.torch
+        from repro_torch.kernels import tt_linear as k
+        cores = [self.randn(*s, scale=1 / math.sqrt(s[0])) for s in spec.core_matrix_shapes()]
+        x = self.randn(b, spec.n_in, dtype=xdt)
+        du = self.randn(b, spec.n_out, dtype=xdt)
+        cores_t, spec_t = k.transpose_train(cores, spec)
+
+        def plain_autograd():
+            live = [x.detach().requires_grad_(), *[c.detach().requires_grad_() for c in cores]]
+            return torch.autograd.grad(k.tt_linear_ref(live[0], live[1:], spec), live, du)
+
+        def dx():
+            return k._tt_linear_cuda(du, cores_t, spec_t, None, None, None, None, role="dx")
+
+        staged = k.staged_launches
+        got = dx()
+        fused = k.staged_launches == staged
+        got_dc = k.core_grads(x, du, cores, spec)
+        want = plain_autograd()
+        tol = 2e-2 if xdt == torch.bfloat16 else 1e-4
+        dc_err = max((a.to(x.dtype).float() - w.float()).abs().max().item()
+                     / (w.float().abs().max().item() or 1.0) for a, w in zip(got_dc, want[1:]))
+        ms = self.time_ms(lambda i: dx())
+        dc_ms = self.time_ms(lambda i: k.core_grads(x, du, cores, spec), iters=5)
+        plain_ms = self.time_ms(lambda i: k.tt_linear_ref(du, cores_t, spec_t), iters=5)
+        autograd_ms = self.time_ms(lambda i: plain_autograd(), iters=3)
+        eye = torch.eye(spec.n_in, device=self.dev)
+        wt = k.tt_linear_ref(eye, cores, spec).T.contiguous().to(xdt)  # (M, N): Wᵀ
+        lib_ms = self.time_ms(lambda i: torch.matmul(du, wt))
+        del eye, wt
+        orders = k.tt_order_flops(spec_t)
+        order = min(orders, key=orders.get)
+        nbytes = du.element_size() * (du.numel() + b * spec.n_in) \
+            + sum(c.numel() * c.element_size() for c in cores)
+        route = "fused route" if fused else "staged route"
+        label = f"tinyllama {role} B={b} {str(xdt).split('.')[-1]} ({route})"
+        self.record("tt_linear_bwd", label, got, want[0], tol,
+                    f"dx = dz·Wᵀ through the kernel on the transposed train against autograd "
+                    f"of the plain version; bound by the {order} order of Wᵀ, "
+                    f"{orders[order] / 1e6:.2f} MFLOP a row",
+                    ms, plain_ms, lib_ms, "torch.matmul(dz, Wᵀ), dense reconstructed W",
+                    nbytes, b * orders[order],
+                    BF16_FLOPS if xdt == torch.bfloat16 else F32_FLOPS)
+        ok = math.isfinite(dc_err) and dc_err <= tol
+        print(f"[tt_linear_bwd] {label}: d-cores GEMMs {dc_ms:.4f} ms, worst core "
+              f"max|d| {dc_err:.3e} of max|plain| (tol {tol:g}) {'ok' if ok else 'FAIL'}; "
+              f"plain forward + autograd backward {autograd_ms:.4f} ms", flush=True)
+        self.phases["tt_linear_bwd"][-1]["d_cores_ms"] = dc_ms
+        if not ok:
+            self.failures.append(f"tt_linear_bwd {label}: d-cores {dc_err} > {tol}")
+
+    def _train_setup(self, n_layers=None, **train_kw):
+        """tinyllama-1.1b (full width; ``n_layers`` cut when given), its
+        TrainConfig (global batch 8, seq_len 2048) and DataConfig."""
+        from repro_torch.config import TrainConfig
+        from repro_torch.configs import get_config
+        from repro_torch.data import DataConfig
+        from repro_torch.models import build_model
+        cfg = get_config("tinyllama-1.1b")
+        if n_layers is not None:
+            cfg = cfg.replace(n_layers=n_layers)
+        tc = TrainConfig(global_batch=8, seq_len=2048, **train_kw)
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=tc.seq_len,
+                        global_batch=tc.global_batch, seed=SEED)
+        return cfg, build_model(cfg, device=self.dev), tc, dc
+
+    def _batch(self, dc, step):
+        from repro_torch.data import make_source
+        return {k: self.torch.from_numpy(v).to(self.dev)
+                for k, v in make_source(dc).batch(step).items()}
+
+    @staticmethod
+    def _state_leaves(state):
+        """(name, tensor) of a TrainState in the port's layout."""
+        from repro_torch.tree import flatten_with_paths
+        return flatten_with_paths([state.params, [state.opt.inner, state.opt.step], state.step])
+
+    def train_tinyllama(self, card):
+        """[train tinyllama-1.1b]: the published config at full width and
+        depth (22 layers, d 2048, 32 heads of 64 over 4 KV heads, d_ff 5632,
+        vocab 32000 untied; TT rank 16 d 4 on attn_o and the MLP, q/k/v
+        dense; f32 params, bf16 compute), random params from the seed,
+        global batch 8 x seq_len 2048, remat "full", AdamW, SyntheticLM
+        seed 0.  Step 0's loss and every param leaf's gradient, hand kernels
+        against ``force_plain()`` on the same batch and both against the
+        plain versions computing in f32 (each leaf's |g_k - g_p| / |g_p|
+        within TRAIN_GRAD_TOL and within TRAIN_GRAD_RATIO of its
+        |g_p - g_f32|; the losses within TRAIN_LOSS_TOL); 4 steps through the
+        Trainer with every launch counted (tt_linear's forward, its
+        backward's recompute of u and its dx apart; no plain version on the
+        card); a forced AsyncCheckpointer save, restored bitwise; one more
+        step profiled.  Returns the run's launch counters."""
+        import statistics
+        import tempfile
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.checkpoint import restore_checkpoint
+        from repro_torch.kernels import dispatch
+        from repro_torch.kernels import tt_linear as k
+        from repro_torch.models import build_model
+        from repro_torch.train import Trainer, build_train_step, init_train_state, loss_and_grads
+        from repro_torch.tree import flatten_with_paths
+        path = "train tinyllama-1.1b"
+        cfg, model, tc, dc = self._train_setup(remat="full", optimizer="adamw")
+        t0 = time.perf_counter()
+        state = init_train_state(model, tc, SEED, device=self.dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for _, p in flatten_with_paths(state.params))
+        print(f"[{path}] {card}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+              f"{cfg.head_dim} over {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}; {n_params / 1e6:.1f} M f32 params + AdamW state in "
+              f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} "
+              f"GiB allocated; batch {tc.global_batch} x {tc.seq_len}, remat {tc.remat}",
+              flush=True)
+        batch0 = self._batch(dc, 0)
+        loss_k, _, g_k = loss_and_grads(model, state.params, batch0, tc)
+        with dispatch.force_plain():
+            loss_p, _, g_p = loss_and_grads(model, state.params, batch0, tc)
+        # the plain versions computing in f32 on the same params and batch: how far
+        # each bf16 route's rounding moves the gradients
+        ref_model = build_model(cfg.replace(compute_dtype="float32"), device=self.dev)
+        with dispatch.force_plain():
+            loss_r, _, g_r = loss_and_grads(ref_model, state.params, batch0, tc)
+        rows = []  # (|g_k - g_p| / |g_p|, its ratio to |g_p - g_f32|, name, |g_p|)
+        to_f32 = {"hand kernels": [], "force_plain()": []}
+        for (name, a), (_, b), (_, r) in zip(flatten_with_paths(g_k), flatten_with_paths(g_p),
+                                             flatten_with_paths(g_r)):
+            a, b = a.float(), b.float()
+            norm, r_norm = b.norm().item(), max(r.norm().item(), 1e-30)
+            d_kp, d_pr = (a - b).norm().item(), (b - r).norm().item()
+            to_f32["hand kernels"].append((a - r).norm().item() / r_norm)
+            to_f32["force_plain()"].append(d_pr / r_norm)
+            rows.append((d_kp / max(norm, 1e-30), d_kp / max(d_pr, 1e-30), name, norm))
+        del g_k, g_p, g_r, ref_model
+        torch.cuda.empty_cache()
+        def desc(v):  # sorts the largest first, a non-finite value before all
+            return -v if math.isfinite(v) else -math.inf
+
+        rows.sort(key=lambda t: desc(t[0]))
+        worst = rows[0][0]
+        worst_ratio = min(rows, key=lambda t: desc(t[1]))
+        grad_checks = {
+            f"every leaf |g_k - g_p| / |g_p| <= {TRAIN_GRAD_TOL}":
+                math.isfinite(worst) and worst <= TRAIN_GRAD_TOL,
+            f"every leaf |g_k - g_p| <= {TRAIN_GRAD_RATIO} |g_p - g_f32|":
+                all(math.isfinite(t[1]) and t[1] <= TRAIN_GRAD_RATIO for t in rows),
+            f"|loss_k - loss_p| <= {TRAIN_LOSS_TOL:g}":
+                abs(float(loss_k) - float(loss_p)) <= TRAIN_LOSS_TOL,
+        }
+        by_kind = {}
+        for rel, ratio, name, _ in rows:
+            by_kind.setdefault(name.split("/")[-2] if "/cores/" not in name else "tt cores",
+                               []).append((rel, ratio))
+        ratios = sorted(t[1] for t in rows)
+        print(f"[{path}] step 0, hand kernels vs force_plain(): loss {float(loss_k):.5f} vs "
+              f"{float(loss_p):.5f}; worst of {len(rows)} gradient leaves |g_k - g_p| / |g_p| "
+              f"= {worst:.3e} at {rows[0][2]} (bound {TRAIN_GRAD_TOL}); median "
+              f"{rows[len(rows) // 2][0]:.3e}; |g_k - g_p| / |g_p - g_f32| worst "
+              f"{worst_ratio[1]:.3f} at {worst_ratio[2]}, median {ratios[len(ratios) // 2]:.3f} "
+              f"(bound {TRAIN_GRAD_RATIO}); next worst "
+              + ", ".join(f"{n} {r:.2e} (|g| {g:.2e})" for r, _, n, g in rows[:6])
+              + "; worst by kind (rel, ratio): "
+              + ", ".join(f"{k_} {max(r for r, _ in v):.2e} {max(q for _, q in v):.3f}"
+                          for k_, v in sorted(by_kind.items()))
+              + f"; checks: {grad_checks}", flush=True)
+        for what, losses in (("hand kernels", loss_k), ("force_plain()", loss_p)):
+            dist = sorted(to_f32[what])
+            print(f"[{path}] step 0, {what} (bf16) against the f32 reference: loss "
+                  f"{float(losses):.5f} vs {float(loss_r):.5f}; gradient leaves "
+                  f"|g - g_f32| / |g_f32| worst {dist[-1]:.3e}, median "
+                  f"{dist[len(dist) // 2]:.3e}", flush=True)
+        for what, good in grad_checks.items():
+            if not good:
+                self.failures.append(f"{path}: step 0 gradients: {what}")
+
+        step_fn = build_train_step(model, tc)
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            tr = Trainer(step_fn, state, dc, ckpt_dir=ckpt_dir, ckpt_every=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            rep = tr.run(4, log_every=0)
+            torch.cuda.synchronize()
+            counts = counters()
+            tt = {"forward": k.launches - k.bwd_launches - k.recompute_launches,
+                  "recompute": k.recompute_launches, "backward dx": k.bwd_launches}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            t_ckpt = time.perf_counter()
+            restored, _ = restore_checkpoint(ckpt_dir, tr.current_step(), tr.state)
+            t_ckpt = time.perf_counter() - t_ckpt
+            live = self._state_leaves(tr.state)
+            back = self._state_leaves(restored)
+            differ = [n for (n, a), (m, b) in zip(live, back)
+                      if n != m or a.dtype != b.dtype or not torch.equal(a.cpu(), b)]
+            ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*") if f.is_file())
+        del restored
+        per_step = {what: n / len(rep.losses) for what, n in tt.items()}
+        f_layer, rec_layer = self._tt_launches_a_layer(cfg)
+        want = {"forward": 2 * cfg.n_layers * f_layer, "recompute": cfg.n_layers * rec_layer,
+                "backward dx": cfg.n_layers * f_layer}
+        ln_v = math.log(cfg.vocab_size)
+        checks = {
+            "4 steps, losses finite": rep.steps_done == 4 and rep.restarts == 0
+            and all(math.isfinite(v) for v in rep.losses),
+            "step 0 within 0.5 of ln V": abs(rep.losses[0] - ln_v) <= 0.5,
+            f"step 0 within {TRAIN_INIT_LOSS_TOL} of ln V + 1/2":
+                abs(rep.losses[0] - ln_v - 0.5) <= TRAIN_INIT_LOSS_TOL,
+            "tt_linear launches a step as predicted": per_step == want,
+            "no plain version on the card": all(p == 0 for _, p in counts.values()),
+            "every kernel of the path launched": all(counts[k][0] > 0
+                                                     for k in PATH_KERNELS[path]),
+            "checkpoint restored bitwise": not differ and len(live) == len(back),
+        }
+        times = rep.step_times
+        print(f"[{path}] {card}: losses {[round(v, 4) for v in rep.losses]} (ln V {ln_v:.4f}); "
+              f"step wall {[round(t * 1e3, 1) for t in times]} ms, tokens/s "
+              f"{tc.global_batch * tc.seq_len / statistics.mean(times[1:]):.0f} (steps 1-3); "
+              f"peak {peak:.2f} GiB; tt_linear launches {tt} ({per_step} a step, predicted "
+              f"{want}), tt_linear.plain_cuda_calls {counts['tt_linear'][1]}; checkpoint of step {tr.current_step()}: {ckpt_bytes / 2**30:.2f} GiB "
+              f"restored in {t_ckpt:.1f} s, {len(live)} leaves, {len(differ)} differ; checks: "
+              f"{checks}", flush=True)
+        for what, good in checks.items():
+            if not good:
+                self.failures.append(f"{path}: {what}")
+
+        batch = self._batch(dc, tr.current_step())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, metrics = step_fn(tr.state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = kernel_events(prof)
+        device_s = sum(e.self_device_time_total for e in events) / 1e6
+        hand_s = sum(e.self_device_time_total for e in events if hand_kernel(e.key)) / 1e6
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+        print(f"[{path}] {card}: one step profiled: wall {wall * 1e3:.1f} ms, device kernel "
+              f"time {device_s * 1e3:.1f} ms, device busy share {device_s / wall:.3f}; hand "
+              f"kernels {hand_s * 1e3:.1f} ms; {sum(e.count for e in events)} device kernels; "
+              f"top: " + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms"
+                                  for e in top), flush=True)
+        del tr, state, model
+        torch.cuda.empty_cache()
+        return {k: n for k, (n, _) in counts.items()}
+
+    @staticmethod
+    def _tt_launches_a_layer(cfg):
+        """(a block's tt_linear launches in one forward, its launches
+        recomputing u in one backward): 2 a TT linear (the fused route), and
+        the TT linears with an activation (tinyllama: the gate's silu)."""
+        from repro_torch.models.transformer import make_block_specs
+        sp = make_block_specs(cfg, True)
+        tt = [nm for nm, s in (*sp.attn, *sp.mlp) if s.kind == "tt"]
+        return 2 * len(tt), 2 * ("gate" in tt)
+
+    def train_remat(self, card):
+        """[train remat]: tinyllama-1.1b at full width and 2 layers, one
+        batch (8 x 2048) through ``loss_and_grads`` under remat "none",
+        "dots" and "full": loss and grads equal across the three (bitwise,
+        or within 1e-6 of each leaf's norm where an op is not
+        deterministic), peak memory none > dots > full, tt_linear forward
+        launches F, F and 2F (F = one forward's), the backward's on top."""
+        torch = self.torch
+        from repro_torch.kernels import tt_linear as k
+        from repro_torch.train import loss_and_grads
+        from repro_torch.tree import flatten_with_paths
+        path = "train remat"
+        cfg, model, tc, dc = self._train_setup(n_layers=2)
+        params = model.init(SEED, device=self.dev)
+        batch = self._batch(dc, 0)
+        out = {}
+        for policy in ("none", "dots", "full"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            t0 = time.perf_counter()
+            loss, _, grads = loss_and_grads(model, params, batch,
+                                            dataclasses.replace(tc, remat=policy))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            fwd = k.launches - k.bwd_launches - k.recompute_launches
+            out[policy] = (loss, flatten_with_paths(grads), peak, fwd, k.bwd_launches,
+                           k.recompute_launches, wall)
+            del grads
+        f = self._tt_launches_a_layer(cfg)[0] * cfg.n_layers
+        worst, bitwise = 0.0, True
+        for policy in ("dots", "full"):
+            bitwise &= torch.equal(out[policy][0], out["none"][0])
+            for (_, a), (_, b) in zip(out[policy][1], out["none"][1]):
+                if not torch.equal(a, b):
+                    bitwise = False
+                    worst = max(worst, ((a - b).float().norm()
+                                        / b.float().norm().clamp(min=1e-30)).item())
+        checks = {
+            "loss and grads equal": bitwise or worst <= 1e-6,
+            "peak none > dots > full": out["none"][2] > out["dots"][2] > out["full"][2],
+            "forward launches F, F, 2F": (out["none"][3], out["dots"][3], out["full"][3])
+            == (f, f, 2 * f),
+        }
+        for policy, (loss, _, peak, fwd, bwd, rec, wall) in out.items():
+            print(f"[{path}] {card}: remat {policy}: loss {float(loss):.6f}, peak {peak:.2f} GiB "
+                  f"above the params, tt_linear launches forward {fwd} (F = {f}), backward dx "
+                  f"{bwd}, recompute {rec}; wall {wall * 1e3:.1f} ms", flush=True)
+        print(f"[{path}] grads across policies: "
+              f"{'bitwise equal' if bitwise else f'worst leaf {worst:.3e} of its norm'}; "
+              f"checks: {checks}", flush=True)
+        for what, good in checks.items():
+            if not good:
+                self.failures.append(f"{path}: {what}")
+        del out, params, model
+        torch.cuda.empty_cache()
+
+    def train_trainer(self, card):
+        """[train trainer]: tinyllama-1.1b at full width and 2 layers, 30
+        steps through the Trainer at lr 3e-3 (warmup 5, remat none, AdamW),
+        an AsyncCheckpointer every 10 steps, a fault injected at step 12:
+        one restart from the step-10 checkpoint, all 30 steps done, and the
+        mean of the last 5 losses at least 0.2 below the first 5's."""
+        import statistics
+        import tempfile
+        torch = self.torch
+        from repro_torch.obs import ObsConfig
+        from repro_torch.train import Trainer, build_train_step, init_train_state
+        path = "train trainer"
+        cfg, model, tc, dc = self._train_setup(n_layers=2, lr=3e-3, warmup_steps=5,
+                                               total_steps=30, remat="none")
+        state = init_train_state(model, tc, SEED, device=self.dev)
+        boom = {"armed": True}
+
+        def injector(step):
+            if step == 12 and boom["armed"]:
+                boom["armed"] = False
+                raise RuntimeError("injected fault")
+
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            tr = Trainer(build_train_step(model, tc), state, dc, ckpt_dir=ckpt_dir,
+                         ckpt_every=10, obs=ObsConfig())
+            t0 = time.perf_counter()
+            rep = tr.run(30, log_every=0, fault_injector=injector)
+            wall = time.perf_counter() - t0
+            saved = list(tr.ckpt.saved_steps)
+        first, last = statistics.mean(rep.losses[:5]), statistics.mean(rep.losses[-5:])
+        reg = tr.obs.registry
+        checks = {"loss falls by >= 0.2": last <= first - 0.2,
+                  "one restart, 30 steps done": rep.restarts == 1 and rep.steps_done == 30,
+                  "restored from the step-10 checkpoint": 10 in saved
+                  and tr.current_step() == 28,
+                  "obs counters": reg.counter("train_steps_total").value == 30
+                  and reg.counter("train_restarts_total").value == 1}
+        print(f"[{path}] {card}: losses {[round(v, 3) for v in rep.losses]}; first 5 mean "
+              f"{first:.4f}, last 5 mean {last:.4f} (fell {first - last:.4f}); restarts "
+              f"{rep.restarts}, checkpoints {saved}; step wall median "
+              f"{statistics.median(rep.step_times) * 1e3:.1f} ms, tokens/s gauge "
+              f"{reg.gauge('train_tokens_per_second').value:.0f}; run {wall:.1f} s; checks: "
+              f"{checks}", flush=True)
+        for what, good in checks.items():
+            if not good:
+                self.failures.append(f"{path}: {what}")
+        del tr, state, model
+        self.torch.cuda.empty_cache()
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2498,11 +2917,30 @@ def main() -> int:
     launches["solo qwen2-vl-7b"] = s.solo_qwen(card)
     print(f"[solo] the single-sequence phases took {time.perf_counter() - t_solo:.1f} s",
           flush=True)
+    # training: the tt_linear backward at tinyllama-1.1b's specs, then
+    # tinyllama-1.1b trained at full width and depth, the remat policies and
+    # the Trainer's fault tolerance at 2 layers
+    t_train = time.perf_counter()
+    with s.own_generators(SEED + 28):
+        tcfg = get_config("tinyllama-1.1b")
+        for role, n_in, n_out in (("attn_o", 2048, 2048), ("mlp_gate", 2048, tcfg.d_ff),
+                                  ("mlp_down", tcfg.d_ff, 2048)):
+            spec = linear_spec(tcfg, role, n_in, n_out).tt
+            for b in (2048, 16384):
+                s.tt_bwd_phase(role.replace("mlp_", ""), spec, b, torch.bfloat16)
+            s.tt_bwd_phase(role.replace("mlp_", ""), spec, 2048, torch.float32)
+    torch.cuda.empty_cache()
+    launches["train tinyllama-1.1b"] = s.train_tinyllama(card)
+    launches["tt_linear_bwd"] = launches["train tinyllama-1.1b"]["tt_linear_bwd"]
+    s.train_remat(card)
+    s.train_trainer(card)
+    print(f"[train] the training phases took {time.perf_counter() - t_train:.1f} s", flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         main = s.phases[name][0]  # the first phase of each kernel is its decode shape
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+        kernels.append({"name": DISPLAY_NAMES.get(name, name), "route": "cuda", "source": src,
+                        "replaces": replaces,
                         "launches": launches[name], "max_abs_err": main["max_abs_err"],
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -1,2 +1,7 @@
 """Checkpoints in the JAX package's on-disk format (``repro.checkpoint``)."""
-from .store import latest_step, restore_checkpoint, save_checkpoint  # noqa: F401
+from .store import (  # noqa: F401
+    AsyncCheckpointer,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)

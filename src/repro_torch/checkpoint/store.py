@@ -11,39 +11,31 @@ and list items by index, as ``jax.tree_util.tree_flatten_with_path`` gives
 them, so either package reads what the other wrote.  npz has no bfloat16: a
 bf16 leaf is stored as raw 2-byte voids under the manifest dtype
 ``"bfloat16"`` and read back through its uint16 bit pattern.  Leaves are
-tensors; a restored tree holds CPU tensors.  The reference's
-``AsyncCheckpointer`` (training) is not ported yet.
+tensors; a restored tree holds CPU tensors.
+
+A node with ``checkpoint_tree(device)`` and ``from_checkpoint_tree(tree)``
+(``train.step.TrainState``) stands in for the reference's pytree
+registration of its ``TrainState``: ``save_checkpoint``,
+``restore_checkpoint`` and ``host_snapshot`` flatten it through those two
+methods, as ``jax.tree_util`` flattens a registered node through its
+flatten and unflatten functions, so the store needs no knowledge of the
+layout and a training state reads and writes the reference's leaf names.
+``AsyncCheckpointer`` (training) snapshots a tree
+to the host before it returns and writes it on one background thread.
 """
 from __future__ import annotations
 
 import json
 import shutil
+import threading
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
 
-_SEP = "/"
-
-
-def _flatten_with_paths(tree) -> list[tuple[str, Any]]:
-    """(name, leaf) pairs in the order and with the names JAX gives a tree
-    of dicts and lists (``None`` is an empty subtree)."""
-    out: list[tuple[str, Any]] = []
-
-    def walk(t, keys):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], keys + [str(k)])
-        elif isinstance(t, (list, tuple)):
-            for i, v in enumerate(t):
-                walk(v, keys + [str(i)])
-        elif t is not None:
-            out.append((_SEP.join(keys), t))
-
-    walk(tree, [])
-    return out
+from ..tree import flatten_with_paths as _flatten_with_paths
+from ..tree import unflatten as _unflatten
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -68,6 +60,8 @@ def save_checkpoint(ckpt_dir: str | Path, step: int, tree, *, extra: dict | None
     """Write a checkpoint of a tree of tensors synchronously; returns its
     directory.  Keeps the newest ``keep`` committed steps."""
     ckpt_dir = Path(ckpt_dir)
+    if hasattr(tree, "checkpoint_tree"):
+        tree = tree.checkpoint_tree("cpu")
     out = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
     if tmp.exists():
@@ -103,20 +97,14 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
     return steps[-1] if steps else None
 
 
-def _rebuild(target, leaves):
-    """``target``'s structure with its leaves replaced, in flatten order."""
-    if isinstance(target, dict):
-        return {k: _rebuild(target[k], leaves) for k in sorted(target)}
-    if isinstance(target, (list, tuple)):
-        return [_rebuild(v, leaves) for v in target]
-    return None if target is None else next(leaves)
-
-
 def restore_checkpoint(ckpt_dir: str | Path, step: int, target_tree) -> tuple[Any, dict]:
     """Restore into the structure of ``target_tree`` (its leaves' values are
     ignored: meta tensors do); returns (tree of CPU tensors, extra)."""
     path = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
+    node = target_tree if hasattr(target_tree, "checkpoint_tree") else None
+    if node is not None:
+        target_tree = node.checkpoint_tree("meta")
     names = [n for n, _ in _flatten_with_paths(target_tree)]
     with np.load(path / "shard_0.npz") as z:
         stored = {k.replace("::", "/") for k in z.files}
@@ -125,4 +113,48 @@ def restore_checkpoint(ckpt_dir: str | Path, step: int, target_tree) -> tuple[An
             raise KeyError(f"checkpoint missing leaves: {missing[:5]} …")
         leaves = [_from_numpy(z[n.replace("/", "::")], manifest["leaves"][n]["dtype"])
                   for n in names]
-    return _rebuild(target_tree, iter(leaves)), manifest["extra"]
+    tree = _unflatten(target_tree, leaves)
+    return (tree if node is None else node.from_checkpoint_tree(tree)), manifest["extra"]
+
+
+def host_snapshot(tree):
+    """A copy of ``tree`` on the host, made before this returns (a node with
+    ``checkpoint_tree`` in that layout): later in-place updates of the
+    live tensors cannot reach it."""
+    if hasattr(tree, "checkpoint_tree"):
+        return tree.checkpoint_tree("cpu")
+    return _unflatten(tree, [t.detach().to("cpu", copy=True)
+                             for _, t in _flatten_with_paths(tree)])
+
+
+class AsyncCheckpointer:
+    """Background-thread checkpointing, as ``repro.checkpoint.store``'s:
+    ``maybe_save`` copies the tree to the host, hands the write to one
+    thread and returns; the previous write is joined before a new one
+    starts (at most one checkpoint in flight)."""
+
+    def __init__(self, ckpt_dir: str | Path, every: int = 100, keep: int = 3):
+        self.ckpt_dir = Path(ckpt_dir)
+        self.every = every
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self.saved_steps: list[int] = []
+
+    def maybe_save(self, step: int, tree, extra: dict | None = None, force=False) -> bool:
+        if not force and (self.every <= 0 or step % self.every != 0):
+            return False
+        self.wait()
+        host_tree = host_snapshot(tree)
+
+        def work():
+            save_checkpoint(self.ckpt_dir, step, host_tree, extra=extra, keep=self.keep)
+            self.saved_steps.append(step)
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+        return True
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None

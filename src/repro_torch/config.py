@@ -1,4 +1,4 @@
-"""Model / TTD / quant configs: a plain-Python mirror of ``repro.config``.
+"""Model / TTD / quant / train configs: a plain-Python mirror of ``repro.config``.
 
 The dataclasses have the same fields and defaults as the JAX package's, so
 one ``config_to_dict`` dict round-trips between the two packages.  The
@@ -127,6 +127,25 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training knobs, as ``repro.config.TrainConfig`` (``grad_compression``
+    is carried for the round trip: it belongs to ``dist/``, not ported)."""
+
+    global_batch: int = 256
+    seq_len: int = 4096
+    microbatches: int = 1  # gradient accumulation steps inside train_step
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"  # adamw | adafactor
+    remat: str = "full"  # full | dots | none
+    grad_compression: str = "none"
+    seed: int = 0
 
 
 def config_to_dict(cfg: ModelConfig) -> dict:

@@ -129,6 +129,15 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and a tensor handed
+    to ``kernel``'s launch requires grad: a kernel with no backward must not
+    return an output that silently cuts the graph."""
+    import torch
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{kernel} has no backward on the card yet")
+
+
 def int_array(vals):
     """A ctypes int array of ``vals`` (mode and rank lists for the C side)."""
     return (ctypes.c_int * len(vals))(*vals)

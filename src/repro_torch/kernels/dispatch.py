@@ -135,7 +135,11 @@ def card_limits(cfg, backend: str) -> list[str]:
     prefill tuple: its decode shares the decode kernel's body).  The
     ``"solo"`` backend (``models.api.Model``'s single-sequence path) runs its
     attention on plain ops, so only its linear, scan, embedding and MoE-expert
-    limits are checked.
+    limits are checked.  The ``"train"`` backend (``train.step``: the solo
+    path's forward with autograd) checks those and refuses, naming it, each
+    hand kernel the trained path reaches that has no backward: int4 linears
+    (whisper's q/k/v among them), a TT embedding, MoE experts (the grouped
+    tt_linear), the wkv and RG-LRU scans; tt_linear has one.
     Kernels with no limit a config can cross (the RG-LRU scan; tt_linear,
     whose bf16 specs past the fused kernel's d <= 8 and ranks <= 32 take the
     staged kernel) are not listed.  int4 scales are bf16 wherever a config's
@@ -172,7 +176,9 @@ def card_limits(cfg, backend: str) -> list[str]:
                                f"compute_dtype {cfg.compute_dtype}")
         if cfg.family == "griffin":
             specs.append(griffin.rec_specs(cfg))
-    if cfg.family != "rwkv" and backend != "solo":
+    if backend == "train":
+        out += _no_backward(cfg, specs)
+    if cfg.family != "rwkv" and backend not in ("solo", "train"):
         if backend in ("paged", "encdec"):
             if cfg.head_dim not in _paged.HEAD_DIMS:
                 out.append(f"paged_attention (decode) takes head_dim {_paged.HEAD_DIMS}; "
@@ -201,6 +207,28 @@ def card_limits(cfg, backend: str) -> list[str]:
     return list(dict.fromkeys(out))
 
 
+NO_BACKWARD = "has no backward on the card yet"
+
+
+def _no_backward(cfg, specs) -> list[str]:
+    """The hand kernels without a backward that training ``cfg`` reaches."""
+    from ..models import modules
+    out = []
+    int4 = [s for d in specs for s in _linear_specs(d) if s.kind == "int4"]
+    if int4:
+        what = "its q/k/v" if cfg.family == "encdec" else f"{len(int4)} of its linears"
+        out.append(f"int4_matmul {NO_BACKWARD}: {what} are int4")
+    if modules.embed_spec(cfg) is not None:
+        out.append(f"tt_embed {NO_BACKWARD}: the embedding is a TT")
+    if cfg.family == "moe":
+        out.append(f"tt_linear_grouped (MoE experts) {NO_BACKWARD}")
+    if cfg.family == "rwkv":
+        out.append(f"wkv_scan {NO_BACKWARD}")
+    if cfg.family == "griffin":
+        out.append(f"rglru_scan {NO_BACKWARD}")
+    return out
+
+
 def check_card_support(cfg, device, backend: str) -> None:
     """Raise ``ValueError`` naming each hand-kernel limit ``cfg`` crosses
     when ``device`` is CUDA; on a CPU device every config runs on the plain
@@ -209,7 +237,8 @@ def check_card_support(cfg, device, backend: str) -> None:
         return
     problems = card_limits(cfg, backend)
     if problems:
-        raise ValueError(f"{cfg.name} cannot be served on the card: " + "; ".join(problems))
+        verb = "trained" if backend == "train" else "served"
+        raise ValueError(f"{cfg.name} cannot be {verb} on the card: " + "; ".join(problems))
 
 
 def dense_linear(x, w, *, scale=None, bias=None, residual=None,

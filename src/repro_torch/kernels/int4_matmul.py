@@ -186,6 +186,7 @@ def f32_route_emulated(x, qweight, scales, group: int = 128) -> torch.Tensor:
 
 
 def _int4_matmul_cuda(x, qweight, scales, group, scale, bias, residual, activation):
+    _build.refuse_grad("int4_matmul", x, scales, scale, bias, residual)
     global launches, f32_launches
     m, kh = qweight.shape
     k = kh * 2

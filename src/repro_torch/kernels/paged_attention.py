@@ -171,6 +171,7 @@ def _decode_workspace(device, n_part: int, n_count: int):
 
 
 def _paged_attention_cuda(q, cache, block_tables, qpos, sm_scale):
+    _build.refuse_grad("paged_attention", q, *cache.values())
     global launches
     if q.ndim != 3:
         raise ValueError(f"decode q must be (B, H, Dh); got {tuple(q.shape)}")

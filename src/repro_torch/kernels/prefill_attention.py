@@ -46,6 +46,7 @@ def prefill_attention_ref(q, qpos, *, cache, block_tables, window: int = 0,
 
 
 def _prefill_attention_cuda(q, qpos, cache, block_tables, window, sm_scale):
+    _build.refuse_grad("prefill_attention", q, *cache.values())
     global launches
     if q.ndim != 4 or qpos.shape != q.shape[:2]:
         raise ValueError(f"q must be (B, Sq, H, Dh) and qpos (B, Sq); got "
@@ -135,6 +136,7 @@ def decode_splits(b: int, wr: int, hkv: int) -> int:
 
 
 def _ring_attention_cuda(q, qpos, k, v, kpos, window, sm_scale, k_scale, v_scale):
+    _build.refuse_grad("ring_attention", q, k, v, k_scale, v_scale)
     global ring_launches
     quantized = check_ring_args(q, k, v, qpos, kpos, k_scale, v_scale)
     b, sq, h, dh = q.shape

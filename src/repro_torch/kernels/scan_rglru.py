@@ -65,7 +65,7 @@ def rglru_scan_plain(log_a, gx, h0, pos=None, *, scan_dtype=None):
     _check_shapes(log_a, gx, h0, pos)
     a, b = _pairs(log_a, gx)
     real = None if pos is None else (pos >= 0)[:, :, None]
-    h = h0.to(torch.float32)
+    h = h0.to(torch.float32, copy=True)  # h0 may be the caller's h_out, written after
     hs = []
     for t in range(log_a.shape[1]):
         step = a[:, t] * h + b[:, t]
@@ -149,6 +149,7 @@ def _carry(device, b, s, w):
 
 
 def _rglru_scan_cuda(log_a, gx, h0, pos, scan_dtype):
+    _build.refuse_grad("rglru_scan", log_a, gx, h0)
     global launches
     _check_shapes(log_a, gx, h0, pos)
     for nm, t in (("log_a", log_a), ("gx", gx), ("h0", h0)):
@@ -219,6 +220,7 @@ def rg_lru_gated_ref(ga, gxp, u, lam, g, h0, pos=None, *, h_out=None):
 
 
 def _rg_lru_gated_cuda(ga, gxp, u, lam, g, h0, pos, h_out):
+    _build.refuse_grad("rglru_scan (gated)", ga, gxp, u, lam, g, h0)
     global launches
     _check_gated(ga, gxp, u, lam, g, h0, pos, h_out)
     dtypes = (torch.float32, torch.bfloat16)

@@ -206,6 +206,7 @@ def wkv_chunk_plan(r, k, v, w, u, state0, pos=None, *, state_scale=None):
 
 
 def _wkv_scan_cuda(r, k, v, w, u, state0, pos, state_scale):
+    _build.refuse_grad("wkv_scan", r, k, v, w, u, state0, state_scale)
     global launches
     check_shapes(r, k, v, w, u, state0, pos, state_scale)
     b, s, h, hd = r.shape

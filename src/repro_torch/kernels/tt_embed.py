@@ -179,6 +179,7 @@ def _slabs(t: int, p: int) -> int:
 
 
 def _tt_embed_cuda(ids, cores, spec: TTSpec):
+    _build.refuse_grad("tt_embed", *cores)
     global launches
     if ids.dtype not in (torch.int32, torch.int64) or not ids.is_cuda:
         raise ValueError(f"ids must be a CUDA int32/int64 tensor; got {ids.dtype}")

@@ -29,6 +29,21 @@ device (``active_experts``).  The contraction takes the decode tiles
 (mma.sync, a few rows a CTA) or, from ``GROUPED_WGMMA_MIN_ROWS`` rows an
 expert on, the wgmma contraction over tiles of 8 or 4 rows with TMA-fed
 operator tiles (``grouped_plan`` says which, and its shape).
+
+Training: on a CUDA tensor under grad mode ``tt_linear`` goes through the
+custom op ``repro_torch::tt_linear``, whose forward is the same kernel call
+(bitwise the inference output) and whose backward (``tt_linear_backward``)
+gives x, every core and each epilogue operand their gradients.  ``repro``
+has no backward kernel (its gradients are XLA's autodiff of the ``ref``
+contraction), so the backward is held to autograd of the plain version:
+dx = dz·Wᵀ runs the same hand kernel on the transposed train
+(``transpose_train``: each core's n and m swapped), the cores' gradients
+are GEMMs over the stage intermediates (``core_grads``), and where the
+activation or the scale needs u = TT(x) it is recomputed by one kernel
+call without the epilogue (no activation-sized tensor is saved).  Being an
+op, it is visible to selective checkpointing (``models.modules``' "dots"
+policy saves its output).  The grouped entry has no backward: it refuses a
+tensor that requires grad.
 """
 from __future__ import annotations
 
@@ -42,12 +57,14 @@ import torch
 from ..core.tt_linear import tt_linear_apply
 from ..core.ttd import TTSpec
 from . import _build
-from .epilogue import ACT_CODES, apply_epilogue
+from .epilogue import ACT_CODES, ACTIVATIONS, apply_epilogue
 
 launches = 0          # kernel launches (2 a fused or grouped call, one per core a staged call)
 staged_launches = 0   # the staged route's share of ``launches``
 grouped_launches = 0  # the grouped entry's share of ``launches``
 plain_cuda_calls = 0  # plain-version calls that were handed CUDA tensors
+bwd_launches = 0        # ``launches``' share of backward dx calls (the transposed train)
+recompute_launches = 0  # ``launches``' share of backward recomputes of u = TT(x)
 
 
 def tt_linear_ref(x, cores, spec: TTSpec, scale=None, bias=None, residual=None,
@@ -145,8 +162,18 @@ def fused_route(spec: TTSpec, x_dtype, core_dtypes) -> bool:
             and spec.d <= FUSED_MAX_D and max(spec.ranks) <= FUSED_MAX_RANK)
 
 
-def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
-    global launches, staged_launches
+def _count(n: int, role: str | None, staged: bool = False):
+    """Add a call's ``n`` kernel launches to the counters, at the launch:
+    ``role`` "dx" (a backward dx call) or "recompute" (a backward recompute
+    of u) also counts them in that share."""
+    global launches, staged_launches, bwd_launches, recompute_launches
+    launches += n
+    staged_launches += n if staged else 0
+    bwd_launches += n if role == "dx" else 0
+    recompute_launches += n if role == "recompute" else 0
+
+
+def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation, role=None):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tt_linear kernel takes f32/bf16 input, got {x.dtype}")
     if x.shape[-1] != spec.n_in or not x.is_contiguous():
@@ -182,7 +209,7 @@ def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
             int(plan.left_first), ACT_CODES[activation], int(cores[0].dtype == torch.float32),
             _build.stream(x))
         _build.check(err, "tt_linear")
-        launches += 2  # the operator pass and the fused contraction
+        _count(2, role)  # the operator pass and the fused contraction
         return out
     scratch = torch.empty(2, b * max_inter if spec.d > 1 else 0, dtype=torch.float32,
                           device=x.device)
@@ -193,18 +220,161 @@ def _tt_linear_cuda(x, cores, spec: TTSpec, scale, bias, residual, activation):
         _build.ptr(scale), _build.ptr(bias), _build.ptr(residual), b, spec.d,
         in_m, out_m, ranks, ACT_CODES[activation], _build.stream(x))
     _build.check(err, "tt_linear")
-    launches += spec.d  # one kernel launch per stage
-    staged_launches += spec.d
+    _count(spec.d, role, staged=True)  # one kernel launch per stage
     return out
 
 
 def tt_linear(x, cores, spec: TTSpec, *, scale=None, bias=None, residual=None,
               activation=None) -> torch.Tensor:
-    """(…, N) -> (…, M): the kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    """(…, N) -> (…, M): the kernel on a CUDA tensor (through the custom op,
+    which has a backward, when grad mode is on and an input requires grad),
+    the plain version on a CPU tensor."""
     if not x.is_cuda:
         return tt_linear_ref(x, cores, spec, scale, bias, residual, activation)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, scale, bias, residual, *cores)):
+        return torch.ops.repro_torch.tt_linear(
+            x, list(cores), list(spec.in_modes), list(spec.out_modes), list(spec.ranks),
+            scale, bias, residual, activation or "")
     return _tt_linear_cuda(x, cores, spec, scale, bias, residual, activation)
+
+
+# ---------------------------------------------------------------------------
+# The backward
+# ---------------------------------------------------------------------------
+def transpose_train(cores, spec: TTSpec):
+    """Wᵀ as a tensor train: core k (r_{k-1}·n_k, m_k·r_k) becomes
+    (r_{k-1}·m_k, n_k·r_k) with its n and m axes swapped, and the in and
+    out modes trade places.  Returns (cores, spec), contiguous, in the
+    cores' dtype."""
+    r, n, m = spec.ranks, spec.in_modes, spec.out_modes
+    cores_t = [c.reshape(r[k], n[k], m[k], r[k + 1]).transpose(1, 2)
+               .reshape(r[k] * m[k], n[k] * r[k + 1]).contiguous() for k, c in enumerate(cores)]
+    return cores_t, TTSpec(spec.out_modes, spec.in_modes, spec.ranks)
+
+
+def _mm(a, b, out_dtype):
+    """a @ b (2-D) accumulated in f32, stored in ``out_dtype``: cuBLAS on the
+    card (bf16 operands straight in); the CPU upcasts."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b).to(out_dtype)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=out_dtype)
+    return torch.mm(a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
+
+
+GRAD_CHUNK_ELEMS = 1 << 27  # elements of the largest stage intermediate a row chunk holds
+
+
+def core_grads(x, du, cores, spec: TTSpec) -> list[torch.Tensor]:
+    """The cores' gradients of y = TT(x) given du = dL/dy, x (B, N) and du
+    (B, M) of one dtype.  Core k's is L_kᵀ R_k, one GEMM over the rows
+    (b, j_<k, i_>k) of x's left partial L_k (x contracted with the cores
+    before k; columns (r_k, i_k)) and du's right partial R_k (du contracted
+    with the cores after k; columns (j_k, r_{k+1})).  Each partial comes
+    from its neighbour by one GEMM with a core and one permute that moves
+    the next mode into the columns.  The partials are stored in x's dtype
+    (f32 accumulation) and the cores rounded to it, as the plain version's
+    stages; rows go in chunks of at most ``GRAD_CHUNK_ELEMS`` partial
+    elements.  Returns f32 (r_k n_k, m_k r_{k+1}) matrices."""
+    n, m, r, d = spec.in_modes, spec.out_modes, spec.ranks, spec.d
+    dt = x.dtype
+    cs = [c.to(dt) for c in cores]
+    per_row = max(math.prod(m[:k + e]) * r[k + e] * math.prod(n[k + e:])
+                  for k in range(d) for e in (0, 1))
+    rows = max(1, GRAD_CHUNK_ELEMS // per_row)
+    out = [torch.zeros(c.shape, dtype=torch.float32, device=x.device) for c in cores]
+    for r0 in range(0, x.shape[0], rows):
+        xb, gb = x[r0:r0 + rows], du[r0:r0 + rows]
+        b = xb.shape[0]
+        right = [None] * d
+        right[d - 1] = gb.reshape(-1, m[d - 1])
+        for k in range(d - 1, 0, -1):
+            # [b, j<k-1, j_{k-1}, i>k | r_k, i_k] -> [b, j<k-1, i_k, i>k | j_{k-1}, r_k]
+            t = _mm(right[k], cs[k].T, dt).reshape(
+                b * math.prod(m[:k - 1]), m[k - 1], math.prod(n[k + 1:]), r[k], n[k])
+            right[k - 1] = t.permute(0, 4, 2, 1, 3).reshape(-1, m[k - 1] * r[k])
+        # [b, i_0, i>0] -> [b, i>0 | i_0]
+        left = xb.reshape(b, n[0], -1).transpose(1, 2).reshape(-1, n[0])
+        for k in range(d):
+            out[k] += _mm(left.T, right[k], torch.float32)
+            if k < d - 1:
+                # [b, j<k, i_{k+1}, i>k+1 | j_k, r_{k+1}] -> [b, j<k, j_k, i>k+1 | r_{k+1}, i_{k+1}]
+                t = _mm(left, cs[k], dt).reshape(
+                    b * math.prod(m[:k]), n[k + 1], math.prod(n[k + 2:]), m[k], r[k + 1])
+                left = t.permute(0, 3, 2, 4, 1).reshape(-1, r[k + 1] * n[k + 1])
+    return out
+
+
+def tt_linear_backward(dy, x, cores, spec: TTSpec, contract, *, scale=None, bias=None,
+                       residual: bool = False, activation=None):
+    """Gradients of y = act(TT(x)·scale + bias) + residual given dy:
+    (dx, [d core], d scale, d bias, d residual), None for an absent operand.
+    ``contract(x, cores, spec, what)`` is TT(x) in x's dtype with no
+    epilogue ("recompute": u for the activation or the scale; "dx": du on
+    the transposed train): the kernel on the card, the plain contraction in
+    the tests.  dz = dy·act'(z) (z = u·scale + bias), d scale = sum dz·u,
+    d bias = sum dz, d residual = dy, du = dz·scale rounded to x's dtype, as
+    autograd of the plain version gives them."""
+    x2 = x.reshape(-1, spec.n_in)
+    g = dy.reshape(-1, spec.n_out).to(torch.float32)
+    u = None
+    if activation is not None or scale is not None:
+        u = contract(x2, cores, spec, "recompute").to(torch.float32)
+    if activation is not None:
+        z = u if scale is None else u * scale.to(torch.float32)
+        z = z if bias is None else z + bias.to(torch.float32)
+        with torch.enable_grad():
+            zz = z.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(ACTIVATIONS[activation](zz), zz, g)
+    d_bias = None if bias is None else g.sum(0).to(bias.dtype)
+    d_scale = None
+    if scale is not None:
+        d_scale = (g * u).sum(0).to(scale.dtype)
+        g = g * scale.to(torch.float32)
+    du = g.to(x.dtype).contiguous()
+    cores_t, spec_t = transpose_train(cores, spec)
+    dx = contract(du, cores_t, spec_t, "dx").reshape(x.shape)
+    d_cores = [dc.to(x.dtype).to(c.dtype) for dc, c in zip(core_grads(x2, du, cores, spec), cores)]
+    return dx, d_cores, d_scale, d_bias, (dy if residual else None)
+
+
+def _contract_on_card(x, cores, spec: TTSpec, what: str):
+    return _tt_linear_cuda(x.contiguous(), [c.contiguous() for c in cores], spec,
+                           None, None, None, None, role=what)
+
+
+@torch.library.custom_op(
+    "repro_torch::tt_linear", mutates_args=(),
+    schema="(Tensor x, Tensor[] cores, int[] in_modes, int[] out_modes, int[] ranks, "
+           "Tensor? scale, Tensor? bias, Tensor? residual, str activation) -> Tensor")
+def _tt_linear_op(x, cores, in_modes, out_modes, ranks, scale, bias, residual, activation):
+    spec = TTSpec(tuple(in_modes), tuple(out_modes), tuple(ranks))
+    return _tt_linear_cuda(x, cores, spec, scale, bias, residual, activation or None)
+
+
+@_tt_linear_op.register_fake
+def _(x, cores, in_modes, out_modes, ranks, scale, bias, residual, activation):
+    return x.new_empty(*x.shape[:-1], math.prod(out_modes))
+
+
+def _tt_op_setup(ctx, inputs, output):
+    x, cores, in_modes, out_modes, ranks, scale, bias, residual, activation = inputs
+    ctx.save_for_backward(x, scale, bias, *cores)
+    ctx.spec = TTSpec(tuple(in_modes), tuple(out_modes), tuple(ranks))
+    ctx.activation = activation or None
+    ctx.residual = residual is not None
+
+
+def _tt_op_backward(ctx, dy):
+    x, scale, bias, *cores = ctx.saved_tensors
+    dx, d_cores, d_scale, d_bias, d_res = tt_linear_backward(
+        dy.contiguous(), x, cores, ctx.spec, _contract_on_card, scale=scale, bias=bias,
+        residual=ctx.residual, activation=ctx.activation)
+    return dx, d_cores, None, None, None, d_scale, d_bias, d_res, None
+
+
+_tt_linear_op.register_autograd(_tt_op_backward, setup_context=_tt_op_setup)
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +631,7 @@ def _grouped_plan(spec: TTSpec, rows: int, experts: int, x_aligned: bool,
 
 
 def _tt_linear_grouped_cuda(x, offsets, cores, spec: TTSpec, activation):
+    _build.refuse_grad("tt_linear_grouped (MoE experts)", x, *cores)
     global launches, grouped_launches
     e = offsets.shape[0] - 1
     if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != spec.n_in \

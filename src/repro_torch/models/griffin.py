@@ -45,11 +45,11 @@ from .modules import (
     init_norm,
     linear_spec,
     mlp_specs,
+    remat_wrap,
     ring_write_index,
     unembed,
 )
 from .transformer import (
-    _no_remat,
     _paged_rope,
     _pos_index,
     _ring_from_prefill,
@@ -444,16 +444,29 @@ def _embed(params, cfg: ModelConfig, tokens, compute_dtype):
 
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, *, remat="none"):
-    """tokens (B, S) -> (hidden (B, S, D) after the final norm, aux 0)."""
-    _no_remat(remat)
+    """tokens (B, S) -> (hidden (B, S, D) after the final norm, aux 0).
+    Each whole pattern group runs under ``remat_wrap(remat)``, the tail's
+    layers without it, as the reference's scan over the groups."""
     compute_dtype = dt(cfg.compute_dtype)
     b, s = tokens.shape
     x = _embed(params, cfg, tokens, compute_dtype)
     rope_cs = _rope_tables(cfg, positions, b, s, x.device)
     rspecs, aspecs = rec_specs(cfg), make_block_specs(cfg, True)
-    for kind, p in _layers(cfg, params):
-        x = rec_block_seq(p, rspecs, cfg, x, compute_dtype) if kind == "rec" else \
-            attn_block_seq(p, aspecs, cfg, x, rope_cs, compute_dtype)
+
+    def layer(kind, p, h):
+        return rec_block_seq(p, rspecs, cfg, h, compute_dtype) if kind == "rec" else \
+            attn_block_seq(p, aspecs, cfg, h, rope_cs, compute_dtype)
+
+    def group_body(h, gp):
+        for key, kind in zip(layer_keys(cfg), _pat(cfg)):
+            h = layer(kind, gp[key], h)
+        return h
+
+    f = remat_wrap(group_body, remat)
+    for gp in params.get("groups", []):
+        x = f(x, gp)
+    for kind, p in zip(pattern_plan(cfg)[1], params.get("tail", [])):
+        x = layer(kind, p, x)
     return apply_norm(params["final_norm"], x), torch.zeros((), dtype=torch.float32,
                                                             device=x.device)
 

@@ -8,12 +8,18 @@ runs through ``kernels.dispatch``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..config import ModelConfig
 from ..core.quant import quantize_int4
@@ -483,3 +489,51 @@ def unembed(x, table, compute_dtype):
         y = torch.mm(xs.reshape(-1, xs.shape[-1]), t.T, out_dtype=torch.float32)
         return y.reshape(*xs.shape[:-1], t.shape[0])
     return torch.matmul(xs.to(torch.float32), t.to(torch.float32).T)
+
+
+# ---------------------------------------------------------------------------
+# Rematerialization of a block in the backward (``repro``'s ``remat_wrap``)
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=1)
+def _dot_ops():
+    """The ops whose outputs the "dots" policy saves: the aten matrix
+    products (what ``checkpoint_dots`` saves of the reference: every
+    ``dot_general``) and the tt_linear op (``kernels.tt_linear``'s custom op,
+    which the card's training path calls)."""
+    aten = torch.ops.aten
+    return {aten.mm.default, aten.bmm.default, aten.addmm.default, aten.baddbmm.default,
+            aten.matmul.default, aten.dot.default, aten.mv.default,
+            torch.ops.repro_torch.tt_linear.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _dot_ops() else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn, policy: str):
+    """``"none"``: ``fn`` itself; ``"full"``: only its inputs are saved and
+    its forward runs again in the backward (non-reentrant
+    ``torch.utils.checkpoint``); ``"dots"``: selective checkpointing that
+    saves the matrix products' outputs and recomputes the rest.  The
+    recompute runs under the forward's ``dispatch.force_plain()`` state:
+    the backward may run on autograd's device thread, which does not see
+    the forward's context variables."""
+    if policy == "none":
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat policy {policy!r}: none | full | dots")
+    kw = {} if policy == "full" else {
+        "context_fn": functools.partial(create_selective_checkpoint_contexts, _save_dots)}
+
+    def run(*args):
+        plain = dispatch.plain_forced()
+
+        def body(*a):
+            if not plain:
+                return fn(*a)
+            with dispatch.force_plain():
+                return fn(*a)
+
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return run

@@ -37,9 +37,9 @@ from .modules import (
     init_linear,
     init_norm,
     linear_spec,
+    remat_wrap,
     unembed,
 )
-from .transformer import _no_remat
 
 MIX_COMPONENTS = ("w", "k", "v", "r", "g")
 
@@ -350,16 +350,20 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, *, remat="none", s
     left as it was).  ``state`` defaults to zeros (token-shift tails in the
     compute dtype); ``masked`` makes ``positions`` the serving liveness mask
     (-1 = padding step), else every step is real."""
-    _no_remat(remat)
     compute_dtype = dt(cfg.compute_dtype)
     x = embed_lookup(params["embed"], tokens, compute_dtype)
     if state is None:
         state = init_state(cfg, tokens.shape[0], compute_dtype, device=x.device)
     pos = positions if masked else None
     specs = rwkv_specs(cfg)
+
+    def body(carry, p, st):
+        return apply_block(p, specs, cfg, carry, st, compute_dtype, positions=pos)
+
+    f = remat_wrap(body, remat)  # each block, as the reference's scan body
     new_state = []
     for p, st in zip(params["blocks"], state):
-        x, st = apply_block(p, specs, cfg, x, st, compute_dtype, positions=pos)
+        x, st = f(x, p, st)
         new_state.append(st)
     x = apply_norm(params["final_norm"], x)
     if return_state:

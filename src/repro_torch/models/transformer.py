@@ -43,6 +43,7 @@ from .modules import (
     mlp_specs,
     paged_kv_update,
     paged_write_index,
+    remat_wrap,
     ring_kv_update,
     ring_write_index,
     rope_angles,
@@ -504,17 +505,11 @@ def apply_block(params, specs: BlockSpecs, cfg: ModelConfig, x, rope_cs, compute
     return x, cache, aux
 
 
-def _no_remat(remat: str):
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: the port has no backward yet, so only remat='none' runs")
-
-
 def forward(params, cfg: ModelConfig, tokens, positions=None, *, remat="none",
             inputs_embeds=None):
     """tokens (B, S) -> (hidden (B, S, D) after the final norm, aux: the sum
-    of the MoE layers' aux losses, f32)."""
-    _no_remat(remat)
+    of the MoE layers' aux losses, f32).  Each block runs under
+    ``remat_wrap(remat)``, as the reference's scan body."""
     compute_dtype = dt(cfg.compute_dtype)
     b, s = tokens.shape[:2]
     x = inputs_embeds if inputs_embeds is not None else \
@@ -523,8 +518,14 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, *, remat="none",
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, (_, ttd_on) in zip(params["segments"], segment_plan(cfg)):
         specs = make_block_specs(cfg, ttd_on)
+
+        def body(carry, layer_params, specs=specs):
+            y, _, aux = apply_block(layer_params, specs, cfg, carry, rope_cs, compute_dtype)
+            return y, aux
+
+        f = remat_wrap(body, remat)
         for layer_params in seg_params:
-            x, _, aux = apply_block(layer_params, specs, cfg, x, rope_cs, compute_dtype)
+            x, aux = f(x, layer_params)
             aux_total = aux_total + aux
     return apply_norm(params["final_norm"], x), aux_total
 

@@ -40,9 +40,10 @@ from .modules import (
     mlp_specs,
     paged_kv_update,
     paged_write_index,
+    remat_wrap,
     unembed,
 )
-from .transformer import _no_remat, _pos_index, _ring_from_prefill, ring_attend, solo_ring
+from .transformer import _pos_index, _ring_from_prefill, ring_attend, solo_ring
 
 
 # ---------------------------------------------------------------------------
@@ -123,22 +124,28 @@ def _heads(cfg: ModelConfig, t):
 # ---------------------------------------------------------------------------
 # Encoder and the per-slot encoder context
 # ---------------------------------------------------------------------------
-def encode(params, cfg: ModelConfig, enc_frames, compute_dtype):
+def encode(params, cfg: ModelConfig, enc_frames, compute_dtype, remat="none"):
     """enc_frames (B, T_enc, D) (the stub frontend's output) -> the encoder's
     output (B, T_enc, D) in ``compute_dtype``.  The skip connections fuse
-    into the output and down projections' epilogues."""
+    into the output and down projections' epilogues; each block runs under
+    ``remat_wrap(remat)``."""
     aspecs, mspecs = attn_specs(cfg), mlp_specs(cfg, True)
     t = enc_frames.shape[1]
     x = enc_frames.to(compute_dtype) + params["enc_pos"][:t].to(compute_dtype)
-    for p in params["enc_blocks"]:
+
+    def body(x, p):
         h = apply_norm(p["ln1"], x)
         q, k, v = (_heads(cfg, apply_linear(p["attn"][nm], h, aspecs[nm], compute_dtype))
                    for nm in ("wq", "wk", "wv"))
         o = attention_dense(q, k, v).reshape(x.shape[0], t, cfg.q_dim)
         y = apply_linear(p["attn"]["wo"], o, aspecs["wo"], compute_dtype,
                          residual=x).to(x.dtype)
-        x = apply_mlp(p["mlp"], apply_norm(p["ln2"], y), mspecs, cfg, compute_dtype,
-                      residual=y).to(y.dtype)
+        return apply_mlp(p["mlp"], apply_norm(p["ln2"], y), mspecs, cfg, compute_dtype,
+                         residual=y).to(y.dtype)
+
+    f = remat_wrap(body, remat)
+    for p in params["enc_blocks"]:
+        x = f(x, p)
     return apply_norm(params["enc_norm"], x)
 
 
@@ -299,13 +306,13 @@ def decode_stack(params, cfg: ModelConfig, tokens, enc_out, compute_dtype, remat
                  return_kv=False):
     """The decoder over whole sequences against ``enc_out`` (B, T_enc, D):
     causal self-attention, cross-attention, MLP; the final norm.  With
-    ``return_kv`` also each layer's ((self k, v), (cross k, v))."""
-    _no_remat(remat)
+    ``return_kv`` also each layer's ((self k, v), (cross k, v)); without it
+    each block runs under ``remat_wrap(remat)``."""
     aspecs, mspecs = attn_specs(cfg), mlp_specs(cfg, True)
     x = embed_lookup(params["embed"], tokens, compute_dtype)
     x = x + params["dec_pos"][:tokens.shape[1]].to(compute_dtype)
-    kvs = []
-    for p in params["dec_blocks"]:
+
+    def body(x, p, enc_out):
         h = apply_norm(p["ln1"], x)
         a, kv = _mha(p["attn"], aspecs, cfg, h, h, causal=True, compute_dtype=compute_dtype,
                      q_block=cfg.q_block, kv_block=cfg.kv_block, residual=x)
@@ -315,19 +322,28 @@ def decode_stack(params, cfg: ModelConfig, tokens, enc_out, compute_dtype, remat
         y = a.to(y.dtype)
         x = apply_mlp(p["mlp"], apply_norm(p["ln2"], y), mspecs, cfg, compute_dtype,
                       residual=y).to(y.dtype)
+        return x, (kv, xkv)
+
+    kvs = []
+    f = remat_wrap(lambda x, p, e: body(x, p, e)[0], remat)
+    for p in params["dec_blocks"]:
         if return_kv:
-            kvs.append((kv, xkv))
+            x, kv = body(x, p, enc_out)
+            kvs.append(kv)
+        else:
+            x = f(x, p, enc_out)
     x = apply_norm(params["final_norm"], x)
     return (x, kvs) if return_kv else x
 
 
-def _encoded(params, cfg: ModelConfig, b: int, enc_frames, compute_dtype, device):
+def _encoded(params, cfg: ModelConfig, b: int, enc_frames, compute_dtype, device,
+             remat="none"):
     """The encoder's output on the given frames, or on zeros (B, T_enc, D)
     for an LM-style call."""
     if enc_frames is None:
         enc_frames = torch.zeros(b, cfg.enc_len, cfg.d_model, dtype=compute_dtype,
                                  device=device)
-    return encode(params, cfg, enc_frames, compute_dtype)
+    return encode(params, cfg, enc_frames, compute_dtype, remat)
 
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, *, remat="none",
@@ -335,7 +351,8 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, *, remat="none",
     """tokens (B, S) and frames (B, T_enc, D) (zeros when None) -> (the
     decoder's hidden (B, S, D), aux 0)."""
     compute_dtype = dt(cfg.compute_dtype)
-    enc_out = _encoded(params, cfg, tokens.shape[0], enc_frames, compute_dtype, tokens.device)
+    enc_out = _encoded(params, cfg, tokens.shape[0], enc_frames, compute_dtype, tokens.device,
+                       remat)
     x = decode_stack(params, cfg, tokens, enc_out, compute_dtype, remat)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

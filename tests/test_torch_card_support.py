@@ -17,7 +17,10 @@ from torch_card_cases import (
     REFUSALS,
     SOLO_FITTING_ARCHS,
     SOLO_REFUSALS,
+    TRAIN_FITTING_ARCHS,
+    TRAIN_REFUSALS,
     refused_config,
+    train_refused_config,
 )
 
 from repro_torch.configs import get_config
@@ -63,6 +66,32 @@ def test_solo_backend_refuses_past_linear_scan_and_expert_limits():
         for cfg in (get_config(arch), serve_config_of(get_config(arch))):
             assert dispatch.card_limits(cfg, "solo") == [], arch
             dispatch.check_card_support(cfg, CUDA, "solo")
+
+
+def test_train_backend_refuses_kernels_without_backward():
+    """The "train" backend (``train.step`` on the card), handed a CUDA device
+    without a card, refuses each config whose trained path reaches a hand
+    kernel with no backward, naming it — int4 linears (whisper's q/k/v
+    among them), a TT embedding, MoE experts, the wkv and RG-LRU scans —
+    and also keeps the solo backend's refusals; the dense configs whose
+    linears are TT or dense pass; ``init_train_state`` refuses up front."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import init_train_state
+    for case, kernel in TRAIN_REFUSALS.items():
+        cfg, _ = train_refused_config(case)
+        with pytest.raises(ValueError, match="cannot be trained on the card") as e:
+            dispatch.check_card_support(cfg, CUDA, "train")
+        assert kernel in str(e.value), case
+        dispatch.check_card_support(cfg, torch.device("cpu"), "train")
+    for case in SOLO_REFUSALS:
+        cfg, _, limit = refused_config(case)
+        assert any(limit in p for p in dispatch.card_limits(cfg, "train")), case
+    for arch in TRAIN_FITTING_ARCHS:
+        assert dispatch.card_limits(get_config(arch), "train") == [], arch
+    cfg, kernel = train_refused_config("moe_experts")
+    with pytest.raises(ValueError, match="tt_linear_grouped"):
+        init_train_state(build_model(cfg), TrainConfig(), 0, device=CUDA)
 
 
 def test_f32_activations_fit_the_int4_kernel():

@@ -1188,3 +1188,138 @@ def test_seeded_sampling_on_card(dev):
     for ahead in (True, False):
         fe = AsyncEngine(cfg, params, dispatch_ahead=ahead, **kw, **sampled)
         assert _burst_async(fe, prompts, 10) == first
+
+
+def _grads_through(fn, ins, spec, act, epi_names, keep, seed):
+    """y = fn(x, cores, spec, activation, epilogue operands) on fresh leaves
+    of ``ins`` (x, the cores, then the operands named ``epi_names``) and
+    their gradients for a seeded dy (times ``keep``)."""
+    live = [t.clone().requires_grad_() for t in ins]
+    y = fn(live[0], live[1:1 + spec.d], spec, activation=act,
+           **dict(zip(epi_names, live[1 + spec.d:])))
+    dy = torch.randn(y.shape, generator=torch.Generator(device=y.device).manual_seed(seed),
+                     device=y.device).to(y.dtype)
+    return y, torch.autograd.grad(y, live, dy * keep)
+
+
+def test_tt_linear_backward_on_card(dev):
+    """The tt_linear op's backward on the card (dx on the transposed train
+    through the hand kernel, the cores' GEMMs, the epilogue's grads, u
+    recomputed by a kernel call) against autograd of the plain version on
+    the same inputs, for tinyllama-1.1b's and whisper-base's specs, the
+    fused route (bf16 x, f32 cores: 2e-2 of max|plain|) and the staged one
+    (f32 x: 1e-4), every activation with scale and bias, and the residual.
+    Under grad mode the forward is bitwise the inference output; the
+    backward's launches are counted apart and the plain version is never
+    handed a CUDA tensor outside the reference call."""
+    from repro_torch.core.ttd import TTSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import tt_linear as k
+    from repro_torch.kernels.epilogue import ACT_CODES
+    g = torch.Generator(device=dev).manual_seed(28)
+    specs = [TTSpec.make(2048, 2048, 16), TTSpec.make(2048, 5632, 16),
+             TTSpec.make(5632, 2048, 16), TTSpec.make(512, 2048, 16, d=3)]
+    epis = [dict(residual=True)] + [dict(activation=a, scale=True, bias=True)
+                                   for a in sorted(a for a in ACT_CODES if a)]
+    bad = []
+    for spec in specs:
+        cores = [(torch.randn(s, generator=g, device=dev) / math.sqrt(s[0]))
+                 for s in spec.core_matrix_shapes()]
+        for xdt, rel in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            for b in (3, 300):
+                for epi in epis[:2] if b == 300 else epis:
+                    x = torch.randn(b, spec.n_in, generator=g, device=dev).to(xdt)
+                    kw = {}
+                    if epi.get("residual"):
+                        kw["residual"] = torch.randn(b, spec.n_out, generator=g,
+                                                     device=dev).to(xdt)
+                    if epi.get("scale"):
+                        kw["scale"] = torch.rand(spec.n_out, generator=g, device=dev) + 0.5
+                        kw["bias"] = 0.1 * torch.randn(spec.n_out, generator=g, device=dev)
+                    act = epi.get("activation")
+                    ins = [x, *cores, *kw.values()]
+                    keep = 1
+                    if act == "relu":  # its derivative jumps at 0, where the kernel's u and
+                        # the plain version's differ by rounding: no gradient on |z| < 0.05
+                        with dispatch.force_plain(), torch.no_grad():
+                            z = dispatch.tt_linear(x, cores, spec, scale=kw["scale"],
+                                                   bias=kw["bias"]).float()
+                        keep = (z.abs() >= 0.05).to(xdt)
+
+                    staged = k.staged_launches
+                    bwd, rec, plain = k.bwd_launches, k.recompute_launches, k.plain_cuda_calls
+                    y, got = _grads_through(k.tt_linear, ins, spec, act, list(kw), keep, b)
+                    assert k.bwd_launches > bwd
+                    assert (k.recompute_launches > rec) == (act is not None)
+                    assert k.plain_cuda_calls == plain
+                    assert (k.staged_launches > staged) == (xdt == torch.float32)
+                    with torch.no_grad():
+                        assert torch.equal(y, k.tt_linear(x, cores, spec, activation=act, **kw))
+                    with dispatch.force_plain():
+                        _, want = _grads_through(dispatch.tt_linear, ins, spec, act, list(kw),
+                                                 keep, b)
+                    for i, (a, w) in enumerate(zip(got, want)):
+                        assert a.dtype == w.dtype and a.shape == w.shape
+                        try:
+                            _close(a, w, rel)
+                        except AssertionError as e:
+                            bad.append(f"{spec.in_modes} {xdt} B={b} {act} input {i}: {e}")
+    assert not bad, bad
+
+
+def test_wrappers_refuse_grad_on_card(dev):
+    """Every hand kernel without a backward raises NotImplementedError for a
+    CUDA input that requires grad under grad mode (and runs under no_grad);
+    check_card_support's "train" backend refuses each TRAIN_REFUSALS case on
+    the card."""
+    from torch_card_cases import TRAIN_REFUSALS, train_refused_config
+
+    from repro_torch.core.quant import quantize_int4
+    from repro_torch.core.ttd import TTSpec
+    from repro_torch.kernels import dispatch
+    bf = torch.bfloat16
+    r = lambda *s, dt=torch.float32: torch.randn(*s, device=dev).to(dt)  # noqa: E731
+    w = quantize_int4(r(64, 128), 32)
+    emb = TTSpec.make(64, 256, 4, d=2)
+    grouped = TTSpec.make(64, 128, 4, d=2)
+    offs = torch.tensor([0, 2, 4], dtype=torch.int32, device=dev)
+    pool = {"k": r(4, 16, 2, 64, dt=bf), "v": r(4, 16, 2, 64, dt=bf)}
+    bt = torch.arange(1, 3, dtype=torch.int32, device=dev).reshape(1, 2)
+    kpos = torch.arange(32, dtype=torch.int32, device=dev)[None]
+    calls = {
+        "int4_matmul": lambda g: dispatch.int4_matmul(
+            r(2, 128, dt=bf).requires_grad_(g), w["qweight"], w["scales"], group=32),
+        "tt_embed": lambda g: dispatch.tt_embed(
+            torch.arange(3, device=dev),
+            [c.requires_grad_(g) for c in (r(*s) for s in emb.core_matrix_shapes())], emb),
+        "tt_linear_grouped (MoE experts)": lambda g: dispatch.tt_linear_grouped(
+            r(4, 64, dt=bf).requires_grad_(g), offs,
+            [r(2, *s, dt=bf) for s in grouped.core_matrix_shapes()], grouped),
+        "wkv_scan": lambda g: dispatch.wkv_scan(
+            r(1, 4, 2, 16).requires_grad_(g), r(1, 4, 2, 16), r(1, 4, 2, 16),
+            torch.rand(1, 4, 2, 16, device=dev), r(2, 16), r(1, 2, 16, 16)),
+        "rglru_scan": lambda g: dispatch.rglru_scan(
+            -torch.rand(1, 4, 64, device=dev).requires_grad_(g), r(1, 4, 64), r(1, 64)),
+        "rglru_scan (gated)": lambda g: dispatch.rg_lru_gated(
+            r(1, 4, 64).requires_grad_(g), r(1, 4, 64), r(1, 4, 64), r(64), r(1, 4, 64),
+            r(1, 64)),
+        "paged_attention": lambda g: dispatch.paged_attention(
+            r(1, 4, 64, dt=bf).requires_grad_(g), pool, bt,
+            torch.tensor([20], dtype=torch.int32, device=dev)),
+        "prefill_attention": lambda g: dispatch.prefill_attention(
+            r(1, 8, 4, 64, dt=bf).requires_grad_(g), kpos[:, :8].contiguous(), cache=pool,
+            block_tables=bt),
+        "ring_attention": lambda g: dispatch.prefill_attention(
+            r(1, 8, 4, 64, dt=bf).requires_grad_(g), kpos[:, :8].contiguous(),
+            k=r(1, 32, 2, 64, dt=bf), v=r(1, 32, 2, 64, dt=bf), kpos=kpos),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match=re.escape(f"{name} has no backward")):
+            call(True)
+        with torch.no_grad():
+            call(True)
+        call(False)
+    for case, kernel in TRAIN_REFUSALS.items():
+        cfg, _ = train_refused_config(case)
+        with pytest.raises(ValueError, match=re.escape(kernel)):
+            dispatch.check_card_support(cfg, dev, "train")

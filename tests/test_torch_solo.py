@@ -392,7 +392,7 @@ def test_engine_matches_solo_reference(family):
 
 def test_model_surface_rules():
     """``init`` and ``init_cache`` take the card unless asked (raising
-    without one); a remat policy other than "none" raises (no backward);
+    without one); remat "dots" gives "none"'s hidden and an unknown policy raises;
     ``get_model`` warns; handed a CUDA device, ``build_model`` refuses a
     config past a linear limit through the solo backend (naming a CUDA
     device needs no card); under M-RoPE a
@@ -413,8 +413,10 @@ def test_model_surface_rules():
     cache = model.init_cache(1, 8, torch.float32, device="cpu")
     assert cache[0][0]["pos"].shape == (8,) and cache[0][0]["k"].shape[1] == 8
     toks = {"tokens": torch.tensor([[1, 2, 3]])}
-    with pytest.raises(NotImplementedError, match="remat"):
-        model.forward(params, toks, remat="dots")
+    assert torch.equal(model.forward(params, toks, remat="dots")[0],
+                       model.forward(params, toks, remat="none")[0])
+    with pytest.raises(ValueError, match="remat"):
+        model.forward(params, toks, remat="some")
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         tapi.get_model(tcfg)  # analyze: allow[deprecated-api] the warning is under test

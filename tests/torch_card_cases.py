@@ -2,7 +2,9 @@
 ``repro_torch.kernels.dispatch.check_card_support``, with the backend they
 are served through and the text the refusal must carry.  Shared by the card
 test (``make_session`` on the card) and its CPU counterpart
-(``check_card_support`` handed a CUDA device without a card)."""
+(``check_card_support`` handed a CUDA device without a card).  The
+``"train"`` backend's cases (``TRAIN_REFUSALS``): configs whose trained path
+reaches a hand kernel with no backward."""
 from repro_torch.configs import get_config
 from repro_torch.models.moe import NON_TT_EXPERTS
 from repro_torch.serve.steps import serve_config_of
@@ -50,3 +52,33 @@ def refused_config(case: str):
                                                                         enabled=False)), "ring"),
     }[case]
     return cfg, backend, REFUSALS[case]
+
+
+# The configs the "train" backend (train.step on the card) takes: dense
+# models whose linears are TT or dense (no int4, no TT embedding).
+TRAIN_FITTING_ARCHS = ("tinyllama-1.1b", "llama2-7b", "chatglm3-6b", "granite-3-8b",
+                       "phi4-mini-3.8b", "qwen1.5-110b", "qwen2-vl-7b", "whisper-base")
+TRAIN_REFUSALS = {
+    "int4_linears": "int4_matmul has no backward on the card yet",
+    "tt_embed": "tt_embed has no backward on the card yet",
+    "moe_experts": "tt_linear_grouped (MoE experts) has no backward on the card yet",
+    "wkv_scan": "wkv_scan has no backward on the card yet",
+    "rglru_scan": "rglru_scan has no backward on the card yet",
+    "whisper_int4_qkv": "int4_matmul has no backward on the card yet: its q/k/v are int4",
+}
+
+
+def train_refused_config(case: str):
+    """(config, the kernel its "train" refusal names) for a
+    ``TRAIN_REFUSALS`` key."""
+    import dataclasses
+    llama = get_config("llama2-7b")
+    cfg = {
+        "int4_linears": serve_config_of(llama),  # int4 on blocks 0-12 and q/k/v
+        "tt_embed": llama.replace(ttd=dataclasses.replace(llama.ttd, embed=True)),
+        "moe_experts": get_config("mixtral-8x22b"),
+        "wkv_scan": get_config("rwkv6-7b"),
+        "rglru_scan": get_config("recurrentgemma-2b"),
+        "whisper_int4_qkv": serve_config_of(get_config("whisper-base")),
+    }[case]
+    return cfg, TRAIN_REFUSALS[case]

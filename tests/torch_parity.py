@@ -14,8 +14,9 @@ import numpy as np
 from repro.models import griffin as jgriffin
 from repro.models import rwkv as jrwkv
 from repro.models import transformer as jtf
+from repro.models import whisper as jwhisper
 
-_INITS = {"griffin": jgriffin.init_lm, "rwkv": jrwkv.init_lm}
+_INITS = {"griffin": jgriffin.init_lm, "rwkv": jrwkv.init_lm, "encdec": jwhisper.init_lm}
 
 
 def _fill(name: str, in_cores: bool, shape, cfg, rng):
@@ -46,7 +47,8 @@ def _fill(name: str, in_cores: bool, shape, cfg, rng):
 
 def jax_params(cfg, seed=0):
     """Seeded JAX param tree with ``init_lm``'s structure, shapes and dtypes
-    (the dense transformer's, griffin's or rwkv's, by the config's family)."""
+    (the dense transformer's, griffin's, rwkv's or whisper's, by the
+    config's family)."""
     init = _INITS.get(cfg.family, jtf.init_lm)
     shapes = jax.eval_shape(partial(init, cfg=cfg), jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
